@@ -1,8 +1,9 @@
-"""bundleadjustment_tpu — a TPU-native Structure-from-Motion / SLAM engine.
+"""bundleadjustment_tpu — a Structure-from-Motion / SLAM engine in JAX.
 
-Built from scratch in JAX/XLA (Pallas kernels + pjit/shard_map distribution) with
-the capability surface of the reference C++ pipeline
-``MatteoWohlrapp/BundleAdjustment`` (OpenCV + Ceres + PCL), re-designed TPU-first:
+Built from scratch in JAX/XLA (jit + shard_map distribution) with the
+capability surface of the reference C++ pipeline
+``MatteoWohlrapp/BundleAdjustment`` (OpenCV + Ceres + PCL), re-designed for
+an accelerator:
 
 - dense SoA scene state (poses / landmarks / observation table + masks) instead of
   a pointer graph (`ba_project/src/model/*` in the reference),

@@ -22,7 +22,7 @@ import sys
 def build_parser():
     p = argparse.ArgumentParser(
         prog="bundleadjustment_tpu",
-        description="TPU-native SfM / bundle adjustment pipeline",
+        description="SfM / bundle adjustment pipeline (JAX)",
     )
     p.add_argument("--init-type", choices=["standard", "gtdepth"], default="gtdepth")
     p.add_argument(
@@ -53,9 +53,6 @@ def build_parser():
     p.add_argument("--n-features", type=int, default=1000)
     p.add_argument("--n-levels", type=int, default=8)
     p.add_argument("--ba-solver", choices=["dense", "pcg"], default="dense")
-    p.add_argument("--matcher", choices=["auto", "pallas", "xla"],
-                   default="auto", help="descriptor matcher backend (auto: "
-                   "fused Pallas kernel on TPU, XLA elsewhere)")
     p.add_argument("--no-fused-tracking", action="store_true", default=False,
                    help="run detect/match/BA as separate dispatches")
     p.add_argument("--no-warmup", action="store_true", default=False,
@@ -69,7 +66,7 @@ def build_parser():
                    default="auto",
                    help="BA data layout: auto (dense landmark-major above a "
                         "problem-size threshold), flat observation table, or "
-                        "the TPU-optimized dense landmark-major layout")
+                        "the dense landmark-major layout")
     p.add_argument("--global-ba", choices=["single", "windowed", "sharded"],
                    default="single", dest="global_ba",
                    help="global-BA execution mode: single-device "
@@ -153,7 +150,6 @@ def main(argv=None):
         ba_layout=args.ba_layout,
         global_ba_mode=args.global_ba,
         depth_landmarks=args.depth_landmarks,
-        matcher=args.matcher,
         fused_tracking=not args.no_fused_tracking,
         track_batch=args.track_batch,
         seed=args.seed,
@@ -161,9 +157,8 @@ def main(argv=None):
     )
     pipe = BundleAdjustmentPipeline(cfg, ds.K4, ds.width, ds.height)
     if not args.no_warmup:
-        # pre-seed the jit shape buckets on background threads — on a
-        # remote-compile TPU every first-touch bucket otherwise stalls the
-        # frame loop (round-3: ~9 s per fresh local-BA bucket)
+        # pre-seed the jit shape buckets on background threads: every
+        # first-touch bucket otherwise stalls the frame loop on its compile
         from bundleadjustment_tpu.pipeline.warmup import CompileWarmer
 
         CompileWarmer(pipe).start()

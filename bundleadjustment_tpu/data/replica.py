@@ -15,15 +15,23 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-try:
-    from PIL import Image
-except ImportError:  # pragma: no cover
-    Image = None
-
+from bundleadjustment_tpu.data.png import read_png
 from bundleadjustment_tpu.data.tum import MINF, FrameData
 
 REPLICA_K4 = np.array([600.0, 600.0, 599.5, 339.5], np.float32)
 REPLICA_DEPTH_SCALE = 6553.5
+
+
+def _read_jpeg_rgb(path):
+    """JPEG -> [H, W, 3] uint8 RGB; the one decode that needs Pillow."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "reading Replica's JPEG frames needs the 'pillow' package "
+            "(pip install pillow)") from e
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
 
 
 @dataclass
@@ -56,14 +64,10 @@ class ReplicaDataset:
 
     def __getitem__(self, idx) -> FrameData:
         fid = self._ids[idx]
-        rgb = np.asarray(
-            Image.open(os.path.join(self._dir, f"frame{fid:06d}.jpg")).convert("RGB"),
-            np.uint8,
-        )
+        rgb = _read_jpeg_rgb(os.path.join(self._dir, f"frame{fid:06d}.jpg"))
         gray = (rgb @ np.array([0.299, 0.587, 0.114], np.float32)) / 255.0
-        d16 = np.asarray(
-            Image.open(os.path.join(self._dir, f"depth{fid:06d}.png")), np.float64
-        )
+        d16 = read_png(
+            os.path.join(self._dir, f"depth{fid:06d}.png")).astype(np.float64)
         depth = (d16 / self.depth_scale).astype(np.float32)
         depth[d16 == 0] = MINF
         gt = self._traj[fid] if self._traj is not None else None

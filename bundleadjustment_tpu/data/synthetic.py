@@ -252,8 +252,7 @@ def render_layered_scene(
     # NOTE (dataset-generation change, round 2): geometry depends on
     # n_frames*motion_step since this sizing landed, so the same seed yields
     # a different world than round-1 renders; metrics recorded before the
-    # change are not directly comparable (BASELINE.md tables are labeled by
-    # round for this reason).
+    # change are not directly comparable.
     span = max(6.0, motion_step * n_frames + 8.0)
     add_surface("z", 8.0, (-span, span), (-5.0, 5.0),
                 contrast=background_texture)             # back wall
@@ -390,8 +389,7 @@ def write_tum_format(root, frames, depth_scale=5000.0):
     CLI end-to-end tests)."""
     import os
 
-    from PIL import Image
-
+    from bundleadjustment_tpu.data.png import write_png
     from bundleadjustment_tpu.data.tum import rotmat_to_quat
 
     os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
@@ -401,11 +399,11 @@ def write_tum_format(root, frames, depth_scale=5000.0):
         ts = f["timestamp"]
         name = f"{ts:.6f}.png"
         rgb8 = (np.clip(f["gray"], 0, 1) * 255).astype(np.uint8)
-        Image.fromarray(np.stack([rgb8] * 3, -1)).save(os.path.join(root, "rgb", name))
+        write_png(os.path.join(root, "rgb", name), np.stack([rgb8] * 3, -1))
         d = f["depth"].copy()
         d[~np.isfinite(d)] = 0
         d16 = np.clip(d * depth_scale, 0, 65535).astype(np.uint16)
-        Image.fromarray(d16).save(os.path.join(root, "depth", name))
+        write_png(os.path.join(root, "depth", name), d16)
         rgb_lines.append(f"{ts:.6f} rgb/{name}")
         depth_lines.append(f"{ts:.6f} depth/{name}")
         M = f["gt_cam_to_world"]

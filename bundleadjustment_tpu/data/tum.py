@@ -11,7 +11,8 @@ Reproduces the reference `VirtualSensor` conventions exactly
   reference stores their inverses (`VirtualSensor.h:327-363`, inverse at
   `:356`) — we expose both.
 
-Image decode is host-side (PIL); arrays feed straight into device buffers.
+Image decode is host-side (`data/png.py`); arrays feed straight into device
+buffers.
 """
 
 from __future__ import annotations
@@ -21,10 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-try:
-    from PIL import Image
-except ImportError:  # pragma: no cover
-    Image = None
+from bundleadjustment_tpu.data.png import read_png
 
 TUM_K4 = np.array([525.0, 525.0, 319.5, 239.5], np.float32)
 TUM_DEPTH_SCALE = 5000.0
@@ -125,6 +123,17 @@ def _nearest_pose(t, gt_ts, gt_poses, max_diff=0.1):
     return gt_poses[k]
 
 
+def _as_rgb8(img):
+    """8-bit grey / RGB / RGBA image -> [H, W, 3] uint8 RGB."""
+    if img.dtype != np.uint8:
+        raise ValueError(f"expected an 8-bit colour image, got {img.dtype}")
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=-1)
+    if img.shape[2] == 2:  # grey + alpha
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3]
+
+
 @dataclass
 class FrameData:
     index: int
@@ -177,9 +186,9 @@ class TUMDataset:
 
     def __getitem__(self, idx) -> FrameData:
         ts, rgb_path, depth_path = self._frames[idx]
-        rgb = np.asarray(Image.open(rgb_path).convert("RGB"), np.uint8)
+        rgb = _as_rgb8(read_png(rgb_path))
         gray = (rgb @ np.array([0.299, 0.587, 0.114], np.float32)) / 255.0
-        d16 = np.asarray(Image.open(depth_path), np.float64)
+        d16 = read_png(depth_path).astype(np.float64)
         depth = (d16 / self.depth_scale).astype(np.float32)
         depth[d16 == 0] = MINF
         gt = None

@@ -1,6 +1,6 @@
 """Two-view relative pose: vectorized RANSAC for Essential & Homography.
 
-TPU-native replacement for the reference's `SfMHelper::recoverPose`
+Array-form replacement for the reference's `SfMHelper::recoverPose`
 (`ba_project/src/ba/SfMHelper.cpp:498-742`), which calls
 cv::findEssentialMat (RANSAC) + cv::findHomography, scores both with
 ORB-SLAM-style symmetric-transfer chi-square sums, picks H when
@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from bundleadjustment_tpu.geometry.se3 import rotmat_to_aa
+from bundleadjustment_tpu.utils.precision import einsum, mm
 
 CHI2_E = 3.841  # 95% chi2, 1 dof — point-to-epipolar-line distance
 CHI2_H = 5.991  # 95% chi2, 2 dof — symmetric transfer
@@ -97,7 +98,7 @@ def _eight_point(x1, x2):
 
 def _fit_nullvec_weighted(A, w):
     """Smallest eigenvector of sum_i w_i a_i a_i^T  (A: [N, 9], w: [N])."""
-    M = jnp.einsum("ni,nj->ij", A * w[:, None], A)
+    M = einsum("ni,nj->ij", A * w[:, None], A)
     _, vecs = jnp.linalg.eigh(M)
     return vecs[:, 0]
 
@@ -116,14 +117,14 @@ def _project_to_essential(E):
     U, s, Vt = jnp.linalg.svd(E)
     d = jnp.zeros_like(E)
     d = d.at[..., 0, 0].set(1.0).at[..., 1, 1].set(1.0)
-    return U @ d @ Vt
+    return mm(mm(U, d), Vt)
 
 
 def _epipolar_chi2(E, x1h, x2h, inv_sigma2):
     """Squared point-to-epipolar-line distances both ways, scaled.  [B, N]."""
-    l2 = jnp.einsum("bij,nj->bni", E, x1h)  # line in image 2
-    l1 = jnp.einsum("bji,nj->bni", E, x2h)  # line in image 1
-    num = jnp.einsum("ni,bni->bn", x2h, l2) ** 2
+    l2 = einsum("bij,nj->bni", E, x1h)  # line in image 2
+    l1 = einsum("bji,nj->bni", E, x2h)  # line in image 1
+    num = einsum("ni,bni->bn", x2h, l2) ** 2
     d2_2 = num / jnp.maximum(l2[..., 0] ** 2 + l2[..., 1] ** 2, 1e-12)
     d2_1 = num / jnp.maximum(l1[..., 0] ** 2 + l1[..., 1] ** 2, 1e-12)
     return d2_1 * inv_sigma2, d2_2 * inv_sigma2
@@ -195,7 +196,7 @@ def _triangulate_cheirality(R, t, x1, x2, inliers):
     w = jnp.where(jnp.abs(Xh[:, 3]) < 1e-12, 1e-12, Xh[:, 3])
     X = Xh[:, :3] / w[:, None]
     z1 = X[:, 2]
-    z2 = X @ R[2] + t[2]
+    z2 = mm(X, R[2]) + t[2]
     # parallax guard: reject points at infinity
     finite = jnp.all(jnp.abs(X) < 1e4, axis=-1)
     good = inliers & (z1 > 0) & (z2 > 0) & finite
@@ -216,8 +217,8 @@ def decompose_essential(E, uv1, uv2, valid, K4):
     U = U * jnp.sign(jnp.linalg.det(U))
     Vt = Vt * jnp.sign(jnp.linalg.det(Vt))
     W = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], E.dtype)
-    R1 = U @ W @ Vt
-    R2 = U @ W.T @ Vt
+    R1 = mm(mm(U, W), Vt)
+    R2 = mm(mm(U, W.T), Vt)
     t = U[:, 2]
     t = t / jnp.maximum(jnp.linalg.norm(t), 1e-12)
     cands_R = jnp.stack([R1, R1, R2, R2])
@@ -252,11 +253,11 @@ def _four_point_h(x1, x2):
 
 def _homography_chi2(H, uv1h, uv2h, inv_sigma2):
     """Symmetric transfer chi2 [B, N] both directions."""
-    Hx1 = jnp.einsum("bij,nj->bni", H, uv1h)
+    Hx1 = einsum("bij,nj->bni", H, uv1h)
     w1 = jnp.where(jnp.abs(Hx1[..., 2]) < 1e-12, 1e-12, Hx1[..., 2])
     e12 = jnp.sum((Hx1[..., :2] / w1[..., None] - uv2h[None, :, :2]) ** 2, -1)
     Hinv = jnp.linalg.inv(H + 1e-12 * jnp.eye(3, dtype=H.dtype))
-    Hx2 = jnp.einsum("bij,nj->bni", Hinv, uv2h)
+    Hx2 = einsum("bij,nj->bni", Hinv, uv2h)
     w2 = jnp.where(jnp.abs(Hx2[..., 2]) < 1e-12, 1e-12, Hx2[..., 2])
     e21 = jnp.sum((Hx2[..., :2] / w2[..., None] - uv1h[None, :, :2]) ** 2, -1)
     return e21 * inv_sigma2, e12 * inv_sigma2
@@ -269,7 +270,7 @@ def estimate_homography(key, uv1, uv2, valid, n_hyp=256, sigma=1.0):
     idx = _sample_indices(key, valid, n_hyp, 4)
     Hn = _four_point_h(x1n[idx], x2n[idx])
     # denormalize: H = T2^-1 Hn T1
-    H = jnp.linalg.inv(T2)[None] @ Hn @ T1[None]
+    H = mm(mm(jnp.linalg.inv(T2)[None], Hn), T1[None])
     H = H / jnp.where(jnp.abs(H[:, 2:3, 2:3]) < 1e-12, 1e-12, H[:, 2:3, 2:3])
 
     ones = jnp.ones_like(uv1[:, :1])
@@ -296,7 +297,7 @@ def estimate_homography(key, uv1, uv2, valid, n_hyp=256, sigma=1.0):
         A = jnp.concatenate([r1, r2], axis=0)
         ww = jnp.concatenate([w, w])
         Hn_ref = _fit_nullvec_weighted(A, ww).reshape(3, 3)
-        H_ref = jnp.linalg.inv(T2) @ Hn_ref @ T1
+        H_ref = mm(mm(jnp.linalg.inv(T2), Hn_ref), T1)
         H_ref = H_ref / jnp.where(jnp.abs(H_ref[2, 2]) < 1e-12, 1e-12, H_ref[2, 2])
         d1r, d2r = _homography_chi2(H_ref[None], uv1h, uv2h, inv_sigma2)
         ok_r = (d1r[0] < CHI2_H) & (d2r[0] < CHI2_H) & valid
@@ -323,7 +324,7 @@ def decompose_homography(H, uv1, uv2, valid, K4):
     Kinv = jnp.array(
         [[1 / fx, 0, -cx / fx], [0, 1 / fy, -cy / fy], [0, 0, 1]], H.dtype
     )
-    A = Kinv @ H @ K
+    A = mm(mm(Kinv, H), K)
     U, s, Vt = jnp.linalg.svd(A)
     # normalize by middle singular value
     A = A / jnp.maximum(s[1], 1e-12)
@@ -368,9 +369,9 @@ def decompose_homography(H, uv1, uv2, valid, K4):
                 (d1 + d3) * jnp.array([x1, 0.0, x3], H.dtype),
             )
             np_ = jnp.array([x1, 0.0, x3], H.dtype)
-            R = detUV * (U @ Rp @ Vt)
-            t = U @ tp
-            n = V @ np_
+            R = detUV * mm(mm(U, Rp), Vt)
+            t = mm(U, tp)
+            n = mm(V, np_)
             return R, t, n
 
         return jax.vmap(one)(eps_pairs)

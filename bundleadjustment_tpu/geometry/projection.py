@@ -15,6 +15,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from bundleadjustment_tpu.geometry.se3 import aa_to_rotmat
+from bundleadjustment_tpu.utils.precision import einsum
 
 
 def make_intrinsics(fx, fy, cx, cy, dtype=jnp.float32):
@@ -54,7 +55,7 @@ def project(K4, x_cam, eps=1e-9):
 def project_rt(K4, rt_extr, x_world):
     """Project world points through an rt6 extrinsic. Returns (uv, depth)."""
     R = aa_to_rotmat(rt_extr[..., :3])
-    x_cam = jnp.einsum("...ij,...j->...i", R, x_world) + rt_extr[..., 3:]
+    x_cam = einsum("...ij,...j->...i", R, x_world) + rt_extr[..., 3:]
     return project(K4, x_cam)
 
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
+from bundleadjustment_tpu.utils.precision import einsum, mm
+
 _EPS = 1e-8
 
 
@@ -49,7 +51,7 @@ def aa_to_rotmat(rvec):
     a = jnp.sin(theta) / theta
     b = (1.0 - jnp.cos(theta)) / (theta * theta)
     K = skew(rvec)
-    KK = K @ K
+    KK = mm(K, K)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=rvec.dtype), K.shape)
     return eye + a[..., None, None] * K + b[..., None, None] * KK
 
@@ -124,7 +126,7 @@ def rt6_identity(dtype=jnp.float32):
 def rt6_apply(rt, x):
     """Apply transform: [..., 6], [..., 3] -> [..., 3]."""
     R = aa_to_rotmat(rt[..., :3])
-    return jnp.einsum("...ij,...j->...i", R, x) + rt[..., 3:]
+    return einsum("...ij,...j->...i", R, x) + rt[..., 3:]
 
 
 def rt6_inverse(rt):
@@ -133,7 +135,7 @@ def rt6_inverse(rt):
     t = rt[..., 3:]
     Rt = jnp.swapaxes(R, -1, -2)
     return jnp.concatenate(
-        [rotmat_to_aa(Rt), -jnp.einsum("...ij,...j->...i", Rt, t)], axis=-1
+        [rotmat_to_aa(Rt), -einsum("...ij,...j->...i", Rt, t)], axis=-1
     )
 
 
@@ -141,8 +143,8 @@ def rt6_compose(a, b):
     """Compose: result applies b first then a  (x -> Ra (Rb x + tb) + ta)."""
     Ra = aa_to_rotmat(a[..., :3])
     Rb = aa_to_rotmat(b[..., :3])
-    R = Ra @ Rb
-    t = jnp.einsum("...ij,...j->...i", Ra, b[..., 3:]) + a[..., 3:]
+    R = mm(Ra, Rb)
+    t = einsum("...ij,...j->...i", Ra, b[..., 3:]) + a[..., 3:]
     return jnp.concatenate([rotmat_to_aa(R), t], axis=-1)
 
 

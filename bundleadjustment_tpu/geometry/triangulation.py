@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from bundleadjustment_tpu.geometry.projection import intrinsics_matrix, project
 from bundleadjustment_tpu.geometry.se3 import aa_to_rotmat
+from bundleadjustment_tpu.utils.precision import mm
 
 CHI2_2D = 5.991  # 95% quantile of chi^2 with 2 dof; reference SfMHelper.cpp:826,843
 
@@ -24,7 +25,7 @@ def projection_matrix(K4, rt_extr):
     R = aa_to_rotmat(rt_extr[..., :3])
     t = rt_extr[..., 3:]
     Rt = jnp.concatenate([R, t[..., :, None]], axis=-1)
-    return K @ Rt
+    return mm(K, Rt)
 
 
 def triangulate_dlt(P1, P2, uv1, uv2):
@@ -91,8 +92,8 @@ def triangulate_gated(
 
     R1 = aa_to_rotmat(extr1[:3])
     R2 = aa_to_rotmat(extr2[:3])
-    xc1 = X @ R1.T + extr1[3:]
-    xc2 = X @ R2.T + extr2[3:]
+    xc1 = mm(X, R1.T) + extr1[3:]
+    xc2 = mm(X, R2.T) + extr2[3:]
     uv1p, z1 = project(K4, xc1)
     uv2p, z2 = project(K4, xc2)
 
@@ -119,7 +120,7 @@ def median_scene_depth(extr, points, valid):
     `ba_project/src/model/Frame.cpp:394-417` (used for the baseline/median-depth
     >= 0.01 triangulation precondition, SfMHelper.cpp:763-771)."""
     R = aa_to_rotmat(extr[:3])
-    z = points @ R[2, :] + extr[5]
+    z = mm(points, R[2, :]) + extr[5]
     big = jnp.where(valid, z, jnp.inf)
     n = jnp.maximum(jnp.sum(valid), 1)
     zs = jnp.sort(big)

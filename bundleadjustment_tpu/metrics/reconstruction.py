@@ -1,6 +1,6 @@
 """Reconstruction error: point-cloud vs ground-truth alignment via ICP.
 
-TPU-native replacement for the reference's PCL-based metric
+Array-form replacement for the reference's PCL-based metric
 (`ba_project/src/metrics/ReconstructionError.cpp:49-110,134-190`):
 - transform the sparse map into the GT frame using the first keyframe's
   ground-truth pose (`:64-76`);
@@ -10,8 +10,8 @@ TPU-native replacement for the reference's PCL-based metric
   correspondences) is the reconstruction error (`:184-189`).
 
 The nearest-neighbor search is a brute-force [N, M] distance argmin — one
-MXU matmul per iteration, batched over the whole cloud; at the map sizes in
-play (1e4-1e5 points) this beats tree construction on TPU hardware.
+matrix product per iteration, batched over the whole cloud (map sizes in
+play: 1e4-1e5 points).
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ from functools import partial
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+from bundleadjustment_tpu.utils.precision import mm
 
 
 def percentile_scale(points, lo=10.0, hi=90.0):
@@ -47,7 +49,7 @@ def _icp_core(src, dst, max_iters, max_corr_dist):
     def nearest(src_pts):
         d2 = (
             jnp.sum(src_pts**2, 1, keepdims=True)
-            - 2.0 * src_pts @ dst.T
+            - 2.0 * mm(src_pts, dst.T)
             + jnp.sum(dst**2, 1)[None, :]
         )
         idx = jnp.argmin(d2, axis=1)
@@ -56,24 +58,24 @@ def _icp_core(src, dst, max_iters, max_corr_dist):
 
     def step(carry, _):
         R, t = carry
-        cur = src @ R.T + t
+        cur = mm(src, R.T) + t
         idx, d2 = nearest(cur)
         w = (d2 <= max_corr_dist**2).astype(src.dtype)
         n = jnp.maximum(jnp.sum(w), 1.0)
         tgt = dst[idx]
         mu_s = jnp.sum(cur * w[:, None], 0) / n
         mu_t = jnp.sum(tgt * w[:, None], 0) / n
-        H = ((cur - mu_s) * w[:, None]).T @ (tgt - mu_t)
+        H = mm(((cur - mu_s) * w[:, None]).T, tgt - mu_t)
         U, _, Vt = jnp.linalg.svd(H)
-        d = jnp.sign(jnp.linalg.det(Vt.T @ U.T))
+        d = jnp.sign(jnp.linalg.det(mm(Vt.T, U.T)))
         D = jnp.diag(jnp.array([1.0, 1.0, 1.0], src.dtype)).at[2, 2].set(d)
-        dR = Vt.T @ D @ U.T
-        dt = mu_t - dR @ mu_s
-        return (dR @ R, dR @ t + dt), None
+        dR = mm(mm(Vt.T, D), U.T)
+        dt = mu_t - mm(dR, mu_s)
+        return (mm(dR, R), mm(dR, t) + dt), None
 
     init = (jnp.eye(3, dtype=src.dtype), jnp.zeros(3, src.dtype))
     (R, t), _ = jax.lax.scan(step, init, None, length=max_iters)
-    cur = src @ R.T + t
+    cur = mm(src, R.T) + t
     _, d2 = nearest(cur)
     w = d2 <= max_corr_dist**2
     n = jnp.maximum(jnp.sum(w), 1.0)

@@ -1,13 +1,11 @@
 """Batched descriptor matching: all-pairs distances + knn-2 ratio test.
 
-TPU-native replacement for FLANN knn matching + Lowe ratio + uniqueness
+Array-form replacement for FLANN knn matching + Lowe ratio + uniqueness
 cross-check (reference `ba_project/src/ba/FeatureProcessor.cpp:39-95`):
 
-- float descriptors: squared-L2 via one MXU matmul (|a|^2 + |b|^2 - 2 a.b);
-- binary descriptors (ORB-style, packed uint32 words): XOR + popcount,
-  with a fused Pallas kernel (`_hamming_pallas`) that tiles the [M1, M2]
-  distance computation through VMEM and never materializes it in HBM when
-  only the top-2 neighbors are needed.
+- float descriptors: squared-L2 via one matrix product (|a|^2 + |b|^2 - 2 a.b);
+- binary descriptors (ORB-style, packed uint32 words): XOR + popcount over
+  the [M1, M2] pairs, which XLA fuses with the top-2 reduction.
 
 The ratio test keeps a match when best < ratio * second-best
 (`FeatureProcessor.cpp:51-59`, ratio 0.7), and uniqueness keeps only the
@@ -24,14 +22,17 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from bundleadjustment_tpu.utils.precision import HIGHEST
+
 DEFAULT_RATIO = 0.7  # reference FeatureProcessor.cpp:53
 
 
 def l2_distance_matrix(desc_a, desc_b, valid_a=None, valid_b=None):
-    """Squared L2 distances [M1, M2] via MXU.  Invalid rows/cols -> +inf."""
+    """Squared L2 distances [M1, M2].  Invalid rows/cols -> +inf."""
     a2 = jnp.sum(desc_a * desc_a, axis=-1, keepdims=True)
     b2 = jnp.sum(desc_b * desc_b, axis=-1, keepdims=True)
-    d = a2 + b2.T - 2.0 * jnp.dot(desc_a, desc_b.T, preferred_element_type=jnp.float32)
+    d = a2 + b2.T - 2.0 * jnp.dot(desc_a, desc_b.T, precision=HIGHEST,
+                                  preferred_element_type=jnp.float32)
     d = jnp.maximum(d, 0.0)
     if valid_a is not None:
         d = jnp.where(valid_a[:, None], d, jnp.inf)
@@ -166,53 +167,3 @@ def match_descriptors_batch(
         )
 
     return jax.vmap(one)(descs_b, valids_b)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("ratio", "max_dist", "cross_check", "interpret")
-)
-def match_descriptors_fused(
-    desc_a,
-    desc_b,
-    valid_a=None,
-    valid_b=None,
-    ratio=DEFAULT_RATIO,
-    max_dist=None,
-    cross_check=True,
-    interpret=False,
-):
-    """Hamming matching via the fused Pallas top-2 kernel (TPU fast path).
-
-    Same contract as `match_descriptors(metric="hamming")` but the [M1, M2]
-    distance matrix never materializes in HBM (`ops/pallas_matching.py`).
-    """
-    from bundleadjustment_tpu.ops.pallas_matching import hamming_top2_pallas
-
-    m1 = desc_a.shape[0]
-    m2 = desc_b.shape[0]
-    tv = (
-        valid_b.astype(jnp.int32)
-        if valid_b is not None
-        else jnp.ones(m2, jnp.int32)
-    )
-    best, second, idx = hamming_top2_pallas(desc_a, desc_b, tv, interpret=interpret)
-    second = jnp.where(jnp.isinf(second), jnp.finfo(jnp.float32).max, second)
-    ok = jnp.isfinite(best) & (best < ratio * second)
-    if valid_a is not None:
-        ok = ok & valid_a
-    if max_dist is not None:
-        ok = ok & (best <= max_dist)
-    if cross_check:
-        big = jnp.finfo(jnp.float32).max
-        per_train_best = jax.ops.segment_min(
-            jnp.where(ok, best, big), idx, num_segments=m2
-        )
-        is_best = ok & (best <= per_train_best[idx])
-        qidx = jnp.arange(m1, dtype=jnp.int32)
-        first_q = jax.ops.segment_min(
-            jnp.where(is_best, qidx, m1), idx, num_segments=m2
-        )
-        ok = is_best & (first_q[idx] == qidx)
-    match_idx = jnp.where(ok, idx, -1).astype(jnp.int32)
-    match_dist = jnp.where(ok, best, jnp.inf)
-    return match_idx, match_dist

@@ -1,9 +1,9 @@
 """Multi-host initialization helpers.
 
-The TPU-native answer to "NCCL/MPI setup" (SURVEY.md §2.3): JAX's
-distributed runtime handles cross-host coordination; collectives ride ICI
-within a slice and DCN across slices once `jax.distributed.initialize` has
-run on every host.  This module is the thin, testable wrapper the pipeline
+JAX's answer to "NCCL/MPI setup" (SURVEY.md §2.3): its distributed runtime
+handles cross-host coordination; collectives run over NVLink within a host
+and over the network across hosts once `jax.distributed.initialize` has run
+on every host.  This module is the thin, testable wrapper the pipeline
 and benchmarks call; on a single host it is a no-op.
 """
 
@@ -17,7 +17,7 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
     """Initialize jax.distributed from args or standard env vars.
 
     No-op when neither args nor env (JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a TPU pod environment jax
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a cluster environment jax
     auto-detects) indicate a multi-process run.  Returns True if the
     distributed runtime was initialized.
     """

@@ -30,6 +30,7 @@ from bundleadjustment_tpu.geometry.se3 import (
     aa_to_rotmat,
     rotmat_to_aa,
 )
+from bundleadjustment_tpu.utils.precision import einsum, mm
 
 
 class PoseGraph(NamedTuple):
@@ -47,21 +48,21 @@ def _edge_residual(Ti, Tj, Zij):
     Rj = aa_to_rotmat(Tj[:3])
     Rz = aa_to_rotmat(Zij[:3])
     # T_i o T_j^-1
-    R_ij = Ri @ Rj.T
-    t_ij = Ti[3:] - R_ij @ Tj[3:]
+    R_ij = mm(Ri, Rj.T)
+    t_ij = Ti[3:] - mm(R_ij, Tj[3:])
     # Z^-1 o that
-    R_e = Rz.T @ R_ij
-    t_e = Rz.T @ (t_ij - Zij[3:])
+    R_e = mm(Rz.T, R_ij)
+    t_e = mm(Rz.T, t_ij - Zij[3:])
     return jnp.concatenate([rotmat_to_aa(R_e), t_e])
 
 
 def _edge_residual_local(xi, xj, Ti, Tj, Zij):
     """Residual as a function of local left-perturbations xi, xj in R^6."""
     Ti2 = jnp.concatenate(
-        [rotmat_to_aa(aa_to_rotmat(xi[:3]) @ aa_to_rotmat(Ti[:3])), Ti[3:] + xi[3:]]
+        [rotmat_to_aa(mm(aa_to_rotmat(xi[:3]), aa_to_rotmat(Ti[:3]))), Ti[3:] + xi[3:]]
     )
     Tj2 = jnp.concatenate(
-        [rotmat_to_aa(aa_to_rotmat(xj[:3]) @ aa_to_rotmat(Tj[:3])), Tj[3:] + xj[3:]]
+        [rotmat_to_aa(mm(aa_to_rotmat(xj[:3]), aa_to_rotmat(Tj[:3]))), Tj[3:] + xj[3:]]
     )
     return _edge_residual(Ti2, Tj2, Zij)
 
@@ -112,14 +113,14 @@ def solve_pose_graph(graph: PoseGraph, poses0, max_iters=20, cg_iters=50,
         Ji, Jj = jacobians(poses)
 
         # gradient: g = J^T r scattered to nodes
-        gi = jnp.einsum("eri,er->ei", Ji, r)
-        gj = jnp.einsum("eri,er->ei", Jj, r)
+        gi = einsum("eri,er->ei", Ji, r)
+        gj = einsum("eri,er->ei", Jj, r)
         g = jax.ops.segment_sum(gi, graph.edge_i, num_segments=K) + \
             jax.ops.segment_sum(gj, graph.edge_j, num_segments=K)
 
         # block-diagonal (for damping + preconditioner)
-        Hii = jnp.einsum("eri,erj->eij", Ji, Ji)
-        Hjj = jnp.einsum("eri,erj->eij", Jj, Jj)
+        Hii = einsum("eri,erj->eij", Ji, Ji)
+        Hjj = einsum("eri,erj->eij", Jj, Jj)
         D = jax.ops.segment_sum(Hii, graph.edge_i, num_segments=K) + \
             jax.ops.segment_sum(Hjj, graph.edge_j, num_segments=K)
         eye6 = jnp.eye(6)
@@ -131,9 +132,9 @@ def solve_pose_graph(graph: PoseGraph, poses0, max_iters=20, cg_iters=50,
         def matvec(x):
             xi = x[graph.edge_i]
             xj = x[graph.edge_j]
-            yi = jnp.einsum("eri,ei->er", Ji, xi) + jnp.einsum("eri,ei->er", Jj, xj)
-            zi = jnp.einsum("eri,er->ei", Ji, yi)
-            zj = jnp.einsum("eri,er->ei", Jj, yi)
+            yi = einsum("eri,ei->er", Ji, xi) + einsum("eri,ei->er", Jj, xj)
+            zi = einsum("eri,er->ei", Ji, yi)
+            zj = einsum("eri,er->ei", Jj, yi)
             out = jax.ops.segment_sum(zi, graph.edge_i, num_segments=K) + \
                 jax.ops.segment_sum(zj, graph.edge_j, num_segments=K)
             # Marquardt damping + gauge pinning
@@ -149,20 +150,20 @@ def solve_pose_graph(graph: PoseGraph, poses0, max_iters=20, cg_iters=50,
             alpha = rz / jnp.where(jnp.abs(pAp) < 1e-30, 1e-30, pAp)
             x = x + alpha * p
             rr = rr - alpha * Ap
-            z = jnp.einsum("kij,kj->ki", Minv, rr)
+            z = einsum("kij,kj->ki", Minv, rr)
             rz_new = jnp.sum(rr * z)
             beta = rz_new / jnp.where(jnp.abs(rz) < 1e-30, 1e-30, rz)
             return (x, rr, z + beta * p, rz_new), None
 
         x0 = jnp.zeros_like(b)
-        z0 = jnp.einsum("kij,kj->ki", Minv, b)
+        z0 = einsum("kij,kj->ki", Minv, b)
         (dx, _, _, _), _ = jax.lax.scan(
             cg_body, (x0, b, z0, jnp.sum(b * z0)), None, length=cg_iters
         )
 
         dphi = jnp.where(graph.node_fixed[:, None], 0.0, dx[:, :3])
         dt = jnp.where(graph.node_fixed[:, None], 0.0, dx[:, 3:])
-        R_new = aa_to_rotmat(dphi) @ aa_to_rotmat(poses[:, :3])
+        R_new = mm(aa_to_rotmat(dphi), aa_to_rotmat(poses[:, :3]))
         poses_new = jnp.concatenate([rotmat_to_aa(R_new), poses[:, 3:] + dt], -1)
 
         new_cost = cost_of(poses_new)

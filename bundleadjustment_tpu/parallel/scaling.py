@@ -1,14 +1,12 @@
 """Scaling-efficiency harness for the distributed Schur BA.
 
-BASELINE.json config 5 asks for >=70% scaling efficiency on a multi-host
-slice at >=100k landmarks.  This harness measures LM-iterations/s of the
-landmark-sharded solve on meshes of 1..D devices over the SAME total
-problem (strong scaling) or proportionally grown problems (weak scaling),
-and reports efficiency = speedup / device_count.
+Measures LM-iterations/s of the landmark-sharded solve on meshes of 1..D
+devices over the SAME total problem (strong scaling) or proportionally
+grown problems (weak scaling), and reports efficiency = speedup /
+device_count.
 
-On a single-chip environment it still runs against XLA's virtual CPU
-devices (validating the harness and the sharding path); real numbers come
-from a pod slice where the psum rides ICI.
+On XLA's virtual CPU devices it validates the harness and the sharding
+path; times come only from cards joined by NVLink.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ import numpy as np
 
 
 def psum_bytes_per_iter(n_cams: int) -> int:
-    """ICI bytes all-reduced per LM iteration of the landmark-sharded dense
+    """Bytes all-reduced per LM iteration of the landmark-sharded dense
     Schur solve — a function of the CAMERA count only (landmark-side state
     never crosses devices).  Read off the compiled HLO and locked by
     tests/test_scaling.py::test_sharded_ba_psum_traffic_independent_of_landmarks:
@@ -33,25 +31,26 @@ def predicted_efficiency(
     n_cams: int,
     n_landmarks: int,
     n_devices: int,
-    obs_per_pt: int = 6,
-    link_gbps: float = 45.0,
-    mxu_tflops: float = 25.0,
+    *,
+    link_gbps: float,
+    qqt_tflops: float,
 ) -> float:
     """Analytic scaling-efficiency floor for the landmark-sharded exact
-    Schur solve on a D-device ring (BASELINE.md "Scaling evidence"):
+    Schur solve on D devices:
 
       comm/iter  = 2 * psum_bytes * (D-1)/D / link_bw   (ring all-reduce)
-      compute/iter ~= QQ^T flops / D / mxu_rate          (dominant term)
+      compute/iter ~= QQ^T flops / D / qqt_rate          (dominant term)
       efficiency = compute / (compute + comm)
 
-    Defaults are the measured v5e figures: 45 GB/s/direction ICI links and
-    the 25 TF/s f32 (bf16x3-class) rate of the QQ^T contraction.  The model
-    deliberately ignores the small fixed per-iteration terms, making it a
-    FLOOR in the >=100k-landmark regime it is quoted for (config 5)."""
+    `link_gbps` is the all-reduce bandwidth per device in GB/s and
+    `qqt_tflops` the achieved rate of the QQ^T contraction in TFLOP/s; both
+    are measurements of the card in use, so neither has a default.  The
+    model ignores the small fixed per-iteration terms, making it a FLOOR in
+    the >=100k-landmark regime."""
     K, L, D = n_cams, n_landmarks, n_devices
     comm_s = 2 * psum_bytes_per_iter(K) * (D - 1) / D / (link_gbps * 1e9)
     qqt_flops = 2 * (6 * K) ** 2 * (3 * L)
-    compute_s = qqt_flops / D / (mxu_tflops * 1e12)
+    compute_s = qqt_flops / D / (qqt_tflops * 1e12)
     return compute_s / (compute_s + comm_s)
 
 
@@ -70,7 +69,7 @@ def measure_scaling(
 ):
     """Returns {"per_device": [...], "efficiency": [...], ...}.
 
-    layout: "dense" (production TPU engine) | "flat" (segment_sum engine).
+    layout: "dense" (landmark-major engine) | "flat" (segment_sum engine).
     """
     import jax
     from jax.sharding import Mesh

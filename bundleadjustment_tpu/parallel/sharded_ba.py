@@ -1,15 +1,14 @@
 """Distributed bundle adjustment: landmark-sharded Schur reduction on a mesh.
 
-The reference is single-process (SURVEY.md §2.3); this module is the
-capability BASELINE.json configs 4-5 add: Schur-complement BA over >=100k
-landmarks sharded across a TPU slice.
+The reference is single-process (SURVEY.md §2.3); this module adds
+Schur-complement BA over >=100k landmarks sharded across devices.
 
 Sharding layout (SURVEY.md §7 hard part (e)): **landmark-major**.  Every
 landmark and ALL of its observations live on exactly one device, so
 
 - V blocks, point gradients, point updates, and back-substitution are fully
   local (zero communication);
-- only camera-side reductions cross the ICI: the damped U blocks / camera
+- only camera-side reductions cross devices: the damped U blocks / camera
   gradient ([K,6,6] + [K,6]) once per LM iteration, a scalar cost psum per
   accept test, and one [K,6] psum per PCG matvec.
 
@@ -36,6 +35,7 @@ from bundleadjustment_tpu.geometry.se3 import aa_to_rotmat
 from bundleadjustment_tpu.solvers import residuals as res
 from bundleadjustment_tpu.solvers.lm import CHEIRALITY_PENALTY, LMConfig
 from bundleadjustment_tpu.solvers.schur import _sym3_inv
+from bundleadjustment_tpu.utils.precision import einsum, mm
 
 
 class ShardedBAProblem(NamedTuple):
@@ -188,21 +188,21 @@ def _sharded_lm_body(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
             config.robust,
         )
         U_local = jax.ops.segment_sum(
-            jnp.einsum("nri,nrj->nij", Jc, Jc), cam_idx, num_segments=n_cams
+            einsum("nri,nrj->nij", Jc, Jc), cam_idx, num_segments=n_cams
         )
         g_c_local = jax.ops.segment_sum(
-            jnp.einsum("nri,nr->ni", Jc, r), cam_idx, num_segments=n_cams
+            einsum("nri,nr->ni", Jc, r), cam_idx, num_segments=n_cams
         )
-        # ICI reduction: camera-side quantities only
+        # cross-device reduction: camera-side quantities only
         U = _psum(U_local)
         g_c = _psum(g_c_local)
         V = jax.ops.segment_sum(
-            jnp.einsum("nri,nrj->nij", Jp, Jp), pt_idx, num_segments=Ls
+            einsum("nri,nrj->nij", Jp, Jp), pt_idx, num_segments=Ls
         )
         g_p = jax.ops.segment_sum(
-            jnp.einsum("nri,nr->ni", Jp, r), pt_idx, num_segments=Ls
+            einsum("nri,nr->ni", Jp, r), pt_idx, num_segments=Ls
         )
-        W = jnp.einsum("nri,nrj->nij", Jc, Jp)
+        W = einsum("nri,nrj->nij", Jc, Jp)
 
         dU = jnp.clip(jnp.diagonal(U, axis1=-2, axis2=-1), 1e-6, None)
         dV = jnp.clip(jnp.diagonal(V, axis1=-2, axis2=-1), 1e-6, None)
@@ -215,17 +215,17 @@ def _sharded_lm_body(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
         return U, V_inv, W, g_c, g_p
 
     def schur_matvec(U, V_inv, W, x):
-        Ux = jnp.einsum("kij,kj->ki", U, x)
-        Wx = jnp.einsum("nij,ni->nj", W, x[cam_idx])
+        Ux = einsum("kij,kj->ki", U, x)
+        Wx = einsum("nij,ni->nj", W, x[cam_idx])
         y = jax.ops.segment_sum(Wx, pt_idx, num_segments=Ls)
-        z = jnp.einsum("lij,lj->li", V_inv, y)
-        Wz = jnp.einsum("nij,nj->ni", W, z[pt_idx])
+        z = einsum("lij,lj->li", V_inv, y)
+        Wz = einsum("nij,nj->ni", W, z[pt_idx])
         back_local = jax.ops.segment_sum(Wz, cam_idx, num_segments=n_cams)
         return Ux - _psum(back_local)
 
     def pcg(U, V_inv, W, b):
         Minv = jnp.linalg.inv(U)
-        precond = lambda v: jnp.einsum("kij,kj->ki", Minv, v)
+        precond = lambda v: einsum("kij,kj->ki", Minv, v)
         x0 = jnp.zeros_like(b)
         r0 = b
         z0 = precond(r0)
@@ -252,19 +252,19 @@ def _sharded_lm_body(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
         R, t, points, lam, nu, cost, done = state
         U, V_inv, W, g_c, g_p = build(R, t, points, lam)
         # Schur RHS
-        z = jnp.einsum("lij,lj->li", V_inv, g_p)
-        Wz = jnp.einsum("nij,nj->ni", W, z[pt_idx])
+        z = einsum("lij,lj->li", V_inv, g_p)
+        Wz = einsum("nij,nj->ni", W, z[pt_idx])
         red = _psum(jax.ops.segment_sum(Wz, cam_idx, num_segments=n_cams))
         b = -(g_c - red)
         dc = pcg(U, V_inv, W, b)
         # local back-substitution
-        Wx = jnp.einsum("nij,ni->nj", W, dc[cam_idx])
+        Wx = einsum("nij,ni->nj", W, dc[cam_idx])
         y = jax.ops.segment_sum(Wx, pt_idx, num_segments=Ls)
-        dp = -jnp.einsum("lij,lj->li", V_inv, g_p + y)
+        dp = -einsum("lij,lj->li", V_inv, g_p + y)
 
         dphi = jnp.where(cam_fixed[:, None], 0.0, dc[:, :3])
         dt = jnp.where(cam_fixed[:, None], 0.0, dc[:, 3:])
-        R_new = aa_to_rotmat(dphi) @ R
+        R_new = mm(aa_to_rotmat(dphi), R)
         t_new = t + dt
         pts_new = points + jnp.where(pt_valid[:, None], dp, 0.0)
 

@@ -1,11 +1,11 @@
-"""Distributed dense-layout BA: the fast single-chip engine, sharded.
+"""Distributed dense-layout BA: the single-device dense engine, sharded.
 
-`parallel/sharded_ba.py` distributes the *flat* observation-table engine —
-correct, but its segment_sum scatters are slow on TPU (see BASELINE.md).
+`parallel/sharded_ba.py` distributes the *flat* observation-table engine
+with its segment_sum scatters.
 This module shards the **dense landmark-major** engine
 (`solvers/dense_ba.py`) instead: the [L, O] landmark blocks split across the
 mesh axis, every point-side quantity stays device-local and scatter-free,
-and the camera-side one-hot MXU contractions produce per-shard partials that
+and the camera-side one-hot contractions produce per-shard partials that
 are `psum`-reduced — the same communication profile as the flat sharded
 engine (traffic ~ cameras) with the dense engine's per-device speed.
 

@@ -35,8 +35,6 @@ class PipelineConfig:
     scale_factor: float = 1.2
     detector: str = "fast_harris"
     match_ratio: float = 0.7  # Lowe ratio (FeatureProcessor.cpp:53)
-    matcher: str = "auto"  # "auto" | "xla" | "pallas": auto picks the fused
-    #                         Pallas kernel on TPU, plain XLA elsewhere
     min_init_matches: int = 100  # BundleAdjustment.cpp:96-109
 
     # association / search thresholds (Hamming, of 256 bits; the reference's
@@ -55,7 +53,7 @@ class PipelineConfig:
     #   frontend rewrites.  Runs inside the device-resident tracking batch
     #   (the _track_batch_jit tlm stage: snapshot projection + guided match
     #   + re-solve, all in the scan), so the batched dispatch amortization
-    #   is kept.  See BASELINE.md round 5.
+    #   is kept.
     track_window_px: float = 12.0  # projection search radius (level-0 px)
     tracking_fail_ratio: float = 1e-4  # BundleAdjustment.cpp:157-160
     min_track_points: int = 10
@@ -65,17 +63,16 @@ class PipelineConfig:
     # (round-5 sweep: 120-frame handheld runs created 4-6 keyframes and
     # drifted to 0.2-0.3 m ATE), so keyframe need is additionally signaled
     # by inlier-count decay vs the last keyframe (ORB-SLAM's
-    # NeedNewKeyFrame reference-matches criterion) and a max interval
-    # defaults from the round-5 TPU A/B on the handheld regime: 0.85/15
-    # gives 10 keyframes per 120 frames vs 8 at 0.8/20, cutting ONLINE ATE
-    # 0.067 -> 0.016 (denser anchors = fresher local map + shorter
-    # interpolation segments) and wall time 58 -> 32 s
+    # NeedNewKeyFrame reference-matches criterion) and a max interval;
+    # 0.85/15 gave 10 keyframes per 120 handheld frames vs 8 at 0.8/20 and
+    # cut ONLINE ATE 0.067 -> 0.016 in the round-5 A/B (denser anchors =
+    # fresher local map + shorter interpolation segments)
     kf_ref_decay: float = 0.85
     kf_max_interval: int = 15
     max_track_obs: int = 512  # padded 2D-3D capacity for motion-only BA
     fused_tracking: bool = True  # ba/pnp: run detect+match+associate+motion-
-    #   only BA of a tracked frame as ONE device dispatch (latency win on
-    #   remote TPUs); False falls back to separate dispatches
+    #   only BA of a tracked frame as ONE device dispatch; False falls back
+    #   to separate dispatches
     track_batch: int = 8  # device-resident tracking microbatch: process_frames
     #   runs up to this many consecutive tracked frames as ONE lax.scan
     #   dispatch, propagating the per-keypoint landmark association state on
@@ -91,7 +88,7 @@ class PipelineConfig:
     #   the full post-BA constraint set instead of only the sparse tracking-
     #   time inlier list.  Round-3 diagnosis: config-2 full-trajectory ATE
     #   was 2x keyframe-only ATE from per-tracked-frame pose noise around a
-    #   consistent map (BASELINE.md).  Stores per-frame keypoints (~160 KB/
+    #   consistent map.  Stores per-frame keypoints (~160 KB/
     #   frame host RAM); disable for memory-constrained very long runs.
 
     # covisibility / windows
@@ -106,16 +103,15 @@ class PipelineConfig:
     final_ba_outer: int = 3
     final_ba_iters: int = 100  # reference: 3 outer x 100 Ceres iterations
     #   (BundleAdjustment.cpp:228-230); the LM scan early-freezes converged
-    #   iterations so the extra tail is nearly free on TPU
+    #   iterations
     motion_outer: int = 4
     motion_inner: int = 10
     ba_solver: str = "dense"  # "dense" | "pcg"; pcg for big maps
     ba_layout: str = "auto"  # "auto" | "flat" | "dense_landmark"
-    #   dense_landmark is the TPU-optimized exact-Schur layout
-    #   (solvers/dense_ba.py; measured ~25x the flat segment-sum engine on
-    #   v5e at 64 cams/10k landmarks — BASELINE.md).  "auto" picks
-    #   dense_landmark once the problem is big enough to amortize the host-
-    #   side regrouping and [L, max_obs] padding, flat below that.
+    #   dense_landmark is the landmark-major exact-Schur layout
+    #   (solvers/dense_ba.py).  "auto" picks dense_landmark once the problem
+    #   is big enough to amortize the host-side regrouping and [L, max_obs]
+    #   padding, flat below that.
     ba_layout_auto_min_obs: int = 2048
     ba_max_obs_per_pt: int = 16
     pcg_iters: int = 60
@@ -133,8 +129,8 @@ class PipelineConfig:
     # RGB-D landmark seeding at keyframes: backproject keypoints that have no
     # landmark through the frame's depth map (the reference does this once,
     # for the bootstrap reference frame — Initializer.cpp:36-126; RGB-D SLAM
-    # practice extends it to every keyframe, which is how BASELINE config-4
-    # scale ~10k-landmark maps arise from the pipeline itself)
+    # practice extends it to every keyframe, which is how ~10k-landmark maps
+    # arise from the pipeline itself)
     depth_landmarks: bool = False
     depth_landmarks_max: int = 2000  # cap of new seeds per keyframe
 

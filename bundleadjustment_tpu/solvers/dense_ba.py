@@ -1,36 +1,31 @@
-"""Dense-layout bundle adjustment: the TPU speed-of-light solver.
+"""Dense-layout bundle adjustment.
 
-The flat observation-table engine (`solvers/lm.py`) is general but leans on
-`segment_sum` scatter-adds and large gathers, which serialize on TPU — the
-measured result was ~1.8x over CPU (see git history).  This engine
-restructures the problem so every reduction is a dense contraction the MXU
-can tile:
+The flat observation-table engine (`solvers/lm.py`) leans on `segment_sum`
+scatter-adds and large gathers.  This engine restructures the problem so
+every reduction is a dense contraction:
 
 - observations are grouped **by landmark** into rectangular blocks
   ``[L, O]`` (O = capped max observations per landmark, validity-masked), so
   every landmark-side quantity (V blocks, point gradients, back-substitution)
   is a dense reduction over the O axis — no scatter, no gather;
-- camera-side reductions go through one-hot observation->camera matmuls
-  contracted on the MXU, replacing both the camera gathers and the camera
-  scatter-adds.
+- camera-side reductions go through one-hot observation->camera matrix
+  products, replacing both the camera gathers and the camera scatter-adds.
 
 **Layout**: all per-observation tensors live in *component-major* form
-``[components..., O, L]`` — the landmark axis L is the trailing (lane) axis.
-TPU vector tiles are (8, 128): a tensor shaped ``[L, O, 2, 6]`` puts 6
-elements in each 128-lane row (>20x padding waste on every elementwise op),
-while ``[2, 6, O, L]`` fills whole tiles.  This layout change alone is worth
-~9x on the block build (measured v5e, 10k landmarks — see BASELINE.md).
-The small component axes (2 residual rows, 6 camera dofs, 3 point dofs) are
-unrolled in Python, which XLA fuses into a handful of full-width VPU loops;
-camera-side reductions become ``[C, O*L] @ [O*L, K]`` matmuls whose one-hot
-operand is generated inline (fused, never materialized in HBM).
+``[components..., O, L]`` — the landmark axis L is the trailing (contiguous)
+axis, so every elementwise op runs over full-width rows instead of
+2- to 6-element component vectors.  The small component axes (2 residual
+rows, 6 camera dofs, 3 point dofs) are unrolled in Python, which XLA fuses
+into a handful of full-width loops; camera-side reductions become
+``[C, O*L] @ [O*L, K]`` products whose one-hot operand is generated inline.
+Every such product runs at full float32 precision (`utils/precision.py`):
+a one-hot gather is exact only then.
 
 The LM loop, Huber-IRLS weighting, cheirality penalty, Nielsen schedule, and
 Schur-PCG structure mirror `solvers/lm.py` (numerical parity is tested);
 only the data layout differs.
 
-Replaces Ceres LM + DENSE_SCHUR (reference `ba_project/src/ba/Optimizer.cpp:80-90`)
-on the TPU hot path.
+Replaces Ceres LM + DENSE_SCHUR (reference `ba_project/src/ba/Optimizer.cpp:80-90`).
 """
 
 from __future__ import annotations
@@ -45,6 +40,7 @@ import jax.numpy as jnp
 from bundleadjustment_tpu.geometry.se3 import aa_to_rotmat, rotmat_to_aa
 from bundleadjustment_tpu.solvers.lm import CHEIRALITY_PENALTY, LMConfig
 from bundleadjustment_tpu.solvers.residuals import HUBER_DELTA
+from bundleadjustment_tpu.utils.precision import HIGHEST, einsum, mm
 
 
 class DenseBAProblem(NamedTuple):
@@ -88,8 +84,8 @@ def densify_problem(K4, cam_idx, pt_idx, uv, sigma2, valid, cam_fixed,
     keep = ranks < max_obs
     dropped = int(len(p) - keep.sum())
 
-    # trim the O axis to the ACTUAL max slots used (rounded up to the
-    # 8-sublane multiple): every [O, L] plane in the solver — eval, W carry,
+    # trim the O axis to the ACTUAL max slots used (rounded up to a
+    # multiple of 8): every [O, L] plane in the solver — eval, W carry,
     # Q expansion, accept/reject selects — scales with O, and a requested
     # max_obs of 16 on an 8-obs-per-landmark problem would double all of it
     # for all-invalid padding columns (measured 64c/10k: ~1.5x marginal)
@@ -172,34 +168,29 @@ def _to_cm(prob: DenseBAProblem) -> _CM:
 
 
 def _oh(cm: _CM, K, dtype):
-    """One-hot [K, O*L] camera-membership matrix.
-
-    Generated inline from cam_t so XLA fuses it into the consuming matmul —
-    it is never materialized in HBM (L*O*K floats would dominate traffic).
-    """
+    """One-hot [K, O*L] camera-membership matrix, generated inline from
+    cam_t for the consuming product."""
     flat = cm.cam_t.reshape(1, -1)
     return (jnp.arange(K, dtype=cm.cam_t.dtype)[:, None] == flat).astype(dtype)
 
 
 def _gather_cams(M, cm: _CM):
-    """[K, C] camera table -> [C, O, L] per-observation values (MXU matmul)."""
+    """[K, C] camera table -> [C, O, L] per-observation values."""
     O, L = cm.cam_t.shape
-    out = jnp.einsum("kc,kn->cn", M, _oh(cm, M.shape[0], M.dtype))
+    out = einsum("kc,kn->cn", M, _oh(cm, M.shape[0], M.dtype))
     return out.reshape(M.shape[1], O, L)
 
 
 def _reduce_cams(G, cm: _CM, K, bf16=False):
-    """[C, O, L] per-observation values -> [K, C] camera sums (MXU matmul)."""
+    """[C, O, L] per-observation values -> [K, C] camera sums."""
     C = G.shape[0]
     Gf = G.reshape(C, -1)
     if bf16:
-        out = jnp.einsum(
+        return jnp.einsum(
             "cn,kn->kc", Gf.astype(jnp.bfloat16), _oh(cm, K, jnp.bfloat16),
             preferred_element_type=jnp.float32,
         )
-    else:
-        out = jnp.einsum("cn,kn->kc", Gf, _oh(cm, K, Gf.dtype))
-    return out
+    return einsum("cn,kn->kc", Gf, _oh(cm, K, Gf.dtype))
 
 
 def _project_cm(cm: _CM, R, t, Xt):
@@ -356,7 +347,7 @@ def _assemble_cm(cm: _CM, r, Jc, Jp, psum, bf16=False):
     K = cm.cam_fixed.shape[0]
     # camera-side: U is symmetric -> stack only its 21 upper-triangle
     # products + 6 gradient rows into one [27, O*L] @ [O*L, K] matmul
-    # (vs 36+6: a third less VPU elementwise work and matmul rows)
+    # (vs 36+6: a third less elementwise work and fewer product rows)
     rows = [sum(Jc[a, i] * Jc[a, j] for a in range(2)) for i, j in _TRIU6]
     rows += [sum(Jc[a, i] * r[a] for a in range(2)) for i in range(6)]
     stacked = jnp.stack(rows)  # [27, O, L]
@@ -424,40 +415,52 @@ def _w_apply(W, z_pt):
     ])
 
 
+def _schur_pf(cm: _CM, W, V_inv, bf16=False):
+    """Pf[l, k, i, m] = sum_o oh[k,o,l] (W[l,o] @ chol(V^-1)[l])[i,m]: the
+    camera-expanded factor Q of the Schur complement, batched over
+    landmarks ([L, K, 6, 3])."""
+    K = cm.cam_fixed.shape[0]
+    O, L = cm.cam_t.shape
+    C = _chol3_cm(V_inv)  # [3, 3, L]
+    G = jnp.stack([
+        jnp.stack([sum(W[i, j] * C[j, m][None, :] for j in range(3))
+                   for m in range(3)])
+        for i in range(6)
+    ])  # [6, 3, O, L]
+    pf_dtype = jnp.bfloat16 if bf16 else G.dtype
+    return jax.lax.dot_general(
+        (jnp.arange(K)[:, None, None] == cm.cam_t[None]).astype(pf_dtype),
+        G.reshape(18, O, L).astype(pf_dtype),
+        dimension_numbers=(((1,), (1,)), ((2,), (2,))),
+        precision=None if bf16 else HIGHEST,
+        preferred_element_type=pf_dtype,
+    ).reshape(L, K, 6, 3)
+
+
+def _schur_qqt(Pf):
+    """Q Q^T [K, 6, K, 6], contracted directly over (landmark, point-dof).
+    XLA:GPU still writes a transposed copy of Pf for the product (the
+    second-largest kernel at 128 cameras / 100k landmarks, PERF.md)."""
+    return jax.lax.dot_general(
+        Pf, Pf,
+        dimension_numbers=(((0, 3), (0, 3)), ((), ())),
+        precision=None if Pf.dtype == jnp.bfloat16 else HIGHEST,
+        preferred_element_type=jnp.float32,
+    )
+
+
 def _make_step(cm: _CM, config: LMConfig, psum=None):
     """Build the (step, eval_assemble) pair for `lax.scan`.  `psum` is the
     cross-shard reduction hook: None single-device, `lax.psum` inside
     shard_map.  `eval_assemble(R, t, Xt) -> (cost, red, Vu, g_p, W)` seeds
     the scan state; `step` carries the trial point's REDUCED blocks forward
     on acceptance (damping is independent of them, see _assemble_cm)."""
-    single = psum is None
-    if single:
+    if psum is None:
         psum = lambda x: x
     K = cm.cam_fixed.shape[0]
     bf16 = config.mxu_bf16
 
-    O, L = cm.cam_t.shape
-    use_fused = config.fused_eval == "on"
-    if config.fused_eval == "auto":
-        from bundleadjustment_tpu.solvers.pallas_dense_eval import (
-            fused_eval_supported,
-        )
-
-        use_fused = (jax.default_backend() == "tpu"
-                     and fused_eval_supported(O, L, K))
-
     def eval_assemble(R, t, Xt):
-        if use_fused:
-            from bundleadjustment_tpu.solvers.pallas_dense_eval import (
-                fused_eval_assemble,
-            )
-
-            cost, red, Vu, g_p, W = fused_eval_assemble(
-                cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t,
-                cm.fixed_t, R, t, Xt, robust=config.robust,
-                interpret=jax.default_backend() != "tpu",
-            )
-            return psum(cost), psum(red), Vu, g_p, W
         cost, r, Jc, Jp = _eval_cm(cm, R, t, Xt, config.robust)
         red, Vu, g_p, W = _assemble_cm(cm, r, Jc, Jp, psum, bf16=bf16)
         return psum(cost), red, Vu, g_p, W
@@ -468,31 +471,8 @@ def _make_step(cm: _CM, config: LMConfig, psum=None):
         b = -(g_c - red)
 
         if config.solver == "dense":
-            # exact DENSE_SCHUR: S = U_diag - Q Q^T with
-            # Q[(k,i), (l,m)] = sum_o oh[k,o,l] (W[l,o] @ chol(V^-1)[l])[i,m]
-            C = _chol3_cm(V_inv)  # [3, 3, L]
-            G = jnp.stack([
-                jnp.stack([sum(W[i, j] * C[j, m][None, :] for j in range(3))
-                           for m in range(3)])
-                for i in range(6)
-            ])  # [6, 3, O, L]
-            O, L = cm.cam_t.shape
-            pf_dtype = jnp.bfloat16 if bf16 else G.dtype
-            # Pf[k, i, m, l] = sum_o oh[k,o,l] G[i,m,o,l]: batched over l
-            Pf = jax.lax.dot_general(
-                (jnp.arange(K)[:, None, None] == cm.cam_t[None]).astype(pf_dtype),
-                G.reshape(18, O, L).astype(pf_dtype),
-                dimension_numbers=(((1,), (1,)), ((2,), (2,))),
-                preferred_element_type=pf_dtype,
-            ).reshape(L, K, 6, 3)
-            # S = Q Q^T contracted directly over (landmark, point-dof) — no
-            # explicit [6K, 3L] transpose/materialization; XLA folds the
-            # layout change into the matmul operand load
-            S = -psum(jax.lax.dot_general(
-                Pf, Pf,
-                dimension_numbers=(((0, 3), (0, 3)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ))  # [K, 6, K, 6]
+            # exact DENSE_SCHUR: S = U_diag - Q Q^T
+            S = -psum(_schur_qqt(_schur_pf(cm, W, V_inv, bf16=bf16)))
             idx = jnp.arange(K)
             S = S.at[idx, :, idx, :].add(U)
             S = S.reshape(K * 6, K * 6) + 1e-8 * jnp.eye(K * 6, dtype=S.dtype)
@@ -506,7 +486,7 @@ def _make_step(cm: _CM, config: LMConfig, psum=None):
                 xg = _gather_cams(x, cm)  # [6, O, L]
                 zz = _mat3vec_cm(V_inv, _w_reduce(W, xg))
                 back = psum(_reduce_cams(_w_apply(W, zz), cm, K, bf16=bf16))
-                Ux = jnp.einsum("kij,kj->ki", U, x)
+                Ux = einsum("kij,kj->ki", U, x)
                 return Ux - back
 
             def cg_body(s, _):
@@ -516,131 +496,38 @@ def _make_step(cm: _CM, config: LMConfig, psum=None):
                 alpha = rz / jnp.where(jnp.abs(pSp) < 1e-30, 1e-30, pSp)
                 x = x + alpha * p
                 rr = rr - alpha * Sp
-                zp = jnp.einsum("kij,kj->ki", Minv, rr)
+                zp = einsum("kij,kj->ki", Minv, rr)
                 rz_new = jnp.sum(rr * zp)
                 beta = rz_new / jnp.where(jnp.abs(rz) < 1e-30, 1e-30, rz)
                 return (x, rr, zp + beta * p, rz_new), None
 
             x0 = jnp.zeros_like(b)
-            z0 = jnp.einsum("kij,kj->ki", Minv, b)
+            z0 = einsum("kij,kj->ki", Minv, b)
             (dc, _, _, _), _ = jax.lax.scan(
                 cg_body, (x0, b, z0, jnp.sum(b * z0)), None,
                 length=config.pcg_iters,
             )
         return dc
 
-    def solve_fused(red, Vu, g_p, W, lam):
-        """Exact-Schur camera solve with the Pallas schur kernels.
-
-        Preferred path (kernel 3): prepare + Q expansion + S = QQ^T
-        accumulated entirely in VMEM — the XLA Pf materialization
-        ([L,K,6,3], 46 MB at 64c/10k) cost 0.35 ms/iteration of HBM traffic
-        (round-3 attribution).  Fallback (kernel 2 + XLA matmuls) covers
-        shapes the S kernel's VMEM gate rejects."""
-        from bundleadjustment_tpu.solvers.pallas_dense_eval import (
-            fused_schur_prepare,
-            fused_schur_prepare_s,
-            fused_schur_s_supported,
-        )
-
-        O, L = cm.cam_t.shape
-        interpret = jax.default_backend() != "tpu"
-        if fused_schur_s_supported(O, L, K) and single:
-            # single-device: the kernel damps U from the carried raw rows
-            # and folds embed + jitter + rhs assembly, emitting the final
-            # Schur system in (i, k) row order — a symmetric permutation,
-            # so Cholesky solves it directly and only the tiny [6, K]
-            # solution transposes back (round-5: removes ~8 small XLA ops
-            # + launches per LM iteration)
-            S, zv, vinv6, b = fused_schur_prepare_s(
-                lam, Vu, g_p, cm.pt_valid, W.reshape(18, O, L), cm.cam_t, K,
-                red27=red, cam_fixed=cm.cam_fixed,
-                s_bf16=not interpret, interpret=interpret)
-            dc = jax.scipy.linalg.cho_solve(
-                jax.scipy.linalg.cho_factor(S), b
-            ).reshape(6, K).T
-            return dc, vinv6
-        U, g_c = _damp_U_cm(cm, red, lam)
-        if fused_schur_s_supported(O, L, K):
-            # s_bf16 matches XLA's DEFAULT TPU matmul precision (bf16
-            # multiply, f32 accumulate) that the replaced Pf/QQ^T pair used;
-            # interpret/CPU runs keep f32 so parity tests compare exactly
-            S_qqt, zv, vinv6, red6 = fused_schur_prepare_s(
-                lam, Vu, g_p, cm.pt_valid, W.reshape(18, O, L), cm.cam_t, K,
-                s_bf16=not interpret, interpret=interpret)
-            b = -(g_c - psum(red6))
-            S = -psum(S_qqt)
-            S = S.reshape(K, 6, K, 6)
-        else:
-            G, zv, vinv6, red6 = fused_schur_prepare(
-                lam, Vu, g_p, cm.pt_valid, W.reshape(18, O, L), cm.cam_t, K,
-                interpret=interpret)
-            b = -(g_c - psum(red6))
-            pf_dtype = jnp.bfloat16 if bf16 else G.dtype
-            Pf = jax.lax.dot_general(
-                (jnp.arange(K)[:, None, None] == cm.cam_t[None]
-                 ).astype(pf_dtype),
-                G.astype(pf_dtype),
-                dimension_numbers=(((1,), (1,)), ((2,), (2,))),
-                preferred_element_type=pf_dtype,
-            ).reshape(L, K, 6, 3)
-            S = -psum(jax.lax.dot_general(
-                Pf, Pf,
-                dimension_numbers=(((0, 3), (0, 3)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ))
-        idx = jnp.arange(K)
-        S = S.at[idx, :, idx, :].add(U)
-        S = S.reshape(K * 6, K * 6) + 1e-8 * jnp.eye(K * 6, dtype=S.dtype)
-        dc = jax.scipy.linalg.cho_solve(
-            jax.scipy.linalg.cho_factor(S), b.reshape(-1)
-        ).reshape(K, 6)
-        return dc, vinv6
-
     def step(state, _):
         R, t, Xt, lam, nu, cost, done, red, Vu, g_p, W = state
-        if use_fused and config.solver == "dense":
-            from bundleadjustment_tpu.solvers.pallas_dense_eval import (
-                fused_eval_assemble_bs,
-            )
+        U, g_c, V = _damp_blocks_cm(cm, red, Vu, lam)
+        V_inv = _sym3_inv_cm(V)
+        dc = solve_cameras(U, g_c, V_inv, g_p, W)
+        # back-substitution (fully local per landmark)
+        xg = _gather_cams(dc, cm)
+        y = _w_reduce(W, xg)
+        dp = -_mat3vec_cm(V_inv, g_p + y)  # [3, L]
+        dp = jnp.where(cm.pt_valid[None, :], dp, 0.0)
 
-            dc, vinv6 = solve_fused(red, Vu, g_p, W, lam)
-            dphi = jnp.where(cm.cam_fixed[:, None], 0.0, dc[:, :3])
-            dt = jnp.where(cm.cam_fixed[:, None], 0.0, dc[:, 3:])
-            R_new = aa_to_rotmat(dphi) @ R
-            t_new = t + dt
-            # landmark back-substitution is FUSED into the trial eval
-            # kernel (it reads the carried W/vinv6/g_p blocks anyway)
-            new_cost, red_new, Vu_new, gp_new, W_new, Xt_new = (
-                fused_eval_assemble_bs(
-                    cm.K4, cm.cam_t, cm.uv_t, cm.inv_sigma_t, cm.valid_t,
-                    cm.fixed_t, R_new, t_new,
-                    jnp.concatenate([dphi, dt], axis=1), Xt,
-                    W.reshape(18, *cm.cam_t.shape), vinv6, g_p, cm.pt_valid,
-                    robust=config.robust,
-                    interpret=jax.default_backend() != "tpu",
-                )
-            )
-            new_cost = psum(new_cost)
-            red_new = psum(red_new)
-        else:
-            U, g_c, V = _damp_blocks_cm(cm, red, Vu, lam)
-            V_inv = _sym3_inv_cm(V)
-            dc = solve_cameras(U, g_c, V_inv, g_p, W)
-            # back-substitution (fully local per landmark)
-            xg = _gather_cams(dc, cm)
-            y = _w_reduce(W, xg)
-            dp = -_mat3vec_cm(V_inv, g_p + y)  # [3, L]
-            dp = jnp.where(cm.pt_valid[None, :], dp, 0.0)
+        dphi = jnp.where(cm.cam_fixed[:, None], 0.0, dc[:, :3])
+        dt = jnp.where(cm.cam_fixed[:, None], 0.0, dc[:, 3:])
+        R_new = mm(aa_to_rotmat(dphi), R)
+        t_new = t + dt
+        Xt_new = Xt + dp
 
-            dphi = jnp.where(cm.cam_fixed[:, None], 0.0, dc[:, :3])
-            dt = jnp.where(cm.cam_fixed[:, None], 0.0, dc[:, 3:])
-            R_new = aa_to_rotmat(dphi) @ R
-            t_new = t + dt
-            Xt_new = Xt + dp
-
-            new_cost, red_new, Vu_new, gp_new, W_new = eval_assemble(
-                R_new, t_new, Xt_new)
+        new_cost, red_new, Vu_new, gp_new, W_new = eval_assemble(
+            R_new, t_new, Xt_new)
         accept = (new_cost < cost) & jnp.isfinite(new_cost)
         sel = lambda a, b2: jnp.where(accept & ~done, a, b2)
         rel = (cost - new_cost) / jnp.maximum(cost, 1e-20)
@@ -666,10 +553,8 @@ def dense_ba_solve(prob: DenseBAProblem, cam_rt6, points, config=LMConfig()):
     Memory note: the scan carry holds the accepted trial's REDUCED blocks
     (W [6,3,O,L] = 18*O*L floats + small red/Vu/g_p) so an accepted trial's
     eval+assembly is reused instead of recomputed; with the trial set live
-    during the where-selects, peak HBM for the block planes is ~36*O*L*4 B
-    transient.  At the largest single-chip config exercised (O=16,
-    L=131072: ~300 MB transient) this is well inside v5e HBM; if a future
-    config approaches the limit, fall back to recomputing per iteration.
+    during the where-selects, the block planes take ~36*O*L*4 B transient
+    (O=16, L=131072: ~300 MB).
     """
     cm = _to_cm(prob)
     R0 = aa_to_rotmat(cam_rt6[:, :3])

@@ -10,7 +10,7 @@ One engine covers all five reference optimizer classes
   points free;
 - **motion-only BA**: all points fixed; specialized batched fast path
   (`motion_only_ba`) that solves per-camera 6x6 systems with `vmap` — the
-  TPU replacement for per-frame `cv::solvePnP` / MotionOnlyBAOptimizerAngles
+  batched replacement for per-frame `cv::solvePnP` / MotionOnlyBAOptimizerAngles
   (`SfMHelper.cpp:16-117`).
 
 The LM trust-region schedule is Nielsen's (gain-ratio based), the default in
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 from bundleadjustment_tpu.geometry.se3 import aa_to_rotmat, rotmat_to_aa
 from bundleadjustment_tpu.solvers import residuals as res
 from bundleadjustment_tpu.solvers import schur as schur_mod
+from bundleadjustment_tpu.utils.precision import einsum, mm
 
 
 class LMConfig(NamedTuple):
@@ -39,16 +40,8 @@ class LMConfig(NamedTuple):
     pcg_tol: float = 1e-6
     robust: bool = True
     rtol: float = 1e-9  # relative cost-decrease tolerance for early freeze
-    fused_eval: str = "auto"  # dense layout only: Pallas-fused eval+assembly
-    #   (solvers/pallas_dense_eval.py).  "auto" = on when the backend is TPU
-    #   and the problem fits the kernel's VMEM gate; "on" / "off" force it.
-    mxu_bf16: bool = False  # dense layout only: cast the one-hot camera-side
-    #   contractions (incl. the dominant QQ^T) to explicit bf16.  Measured on
-    #   v5e (r2, 64 cams/10k lm): 0.84x — SLOWER than fp32, with bit-identical
-    #   final cost.  Why: XLA's default TPU matmul precision already feeds the
-    #   MXU bf16 inputs with f32 accumulation, so the explicit cast buys no
-    #   rate and adds convert ops.  Kept for experimentation on platforms with
-    #   HIGHEST-precision defaults; accuracy-gated in test_dense_ba_exact.py.
+    mxu_bf16: bool = False  # dense layout only: bf16 operands (f32 sums) for
+    #   the one-hot camera-side contractions incl. QQ^T; no H100 measurement.
 
 
 # Fixed cost charged to an observation whose point sits behind the camera.
@@ -77,7 +70,7 @@ def _apply_update(R, t, points, dc, dp, cam_fixed, pt_fixed):
     dphi = jnp.where(cam_fixed[:, None], 0.0, dc[:, :3])
     dt = jnp.where(cam_fixed[:, None], 0.0, dc[:, 3:])
     dX = jnp.where(pt_fixed[:, None], 0.0, dp)
-    R_new = aa_to_rotmat(dphi) @ R  # left-multiplicative retraction
+    R_new = mm(aa_to_rotmat(dphi), R)  # left-multiplicative retraction
     return R_new, t + dt, points + dX
 
 
@@ -185,7 +178,7 @@ class MotionOnlyConfig(NamedTuple):
 
 def _motion_residuals(K4, R, t, X, uv, sigma2, valid, robust):
     """Residuals + Jacobian wrt a single camera.  X:[M,3] fixed points."""
-    x_cam = X @ R.T + t
+    x_cam = mm(X, R.T) + t
     z = x_cam[:, 2]
     zs = jnp.where(jnp.abs(z) < 1e-9, 1e-9, z)
     fx, fy, cx, cy = K4[0], K4[1], K4[2], K4[3]
@@ -202,7 +195,7 @@ def _motion_residuals(K4, R, t, X, uv, sigma2, valid, robust):
         ],
         axis=-2,
     ) * inv_sigma[:, None, None]
-    RX = X @ R.T
+    RX = mm(X, R.T)
     RXx, RXy, RXz = RX[:, 0], RX[:, 1], RX[:, 2]
     zeros = jnp.zeros_like(RXx)
     neg_skew = jnp.stack(
@@ -213,7 +206,7 @@ def _motion_residuals(K4, R, t, X, uv, sigma2, valid, robust):
         ],
         axis=-2,
     )
-    Jc = jnp.concatenate([duv_dx @ neg_skew, duv_dx], axis=-1)  # [M,2,6]
+    Jc = jnp.concatenate([mm(duv_dx, neg_skew), duv_dx], axis=-1)  # [M,2,6]
     mask = valid & (z > 1e-6)
     w = jnp.where(mask, 1.0, 0.0)
     if robust:
@@ -223,7 +216,7 @@ def _motion_residuals(K4, R, t, X, uv, sigma2, valid, robust):
 
 
 def _motion_cost(K4, R, t, X, uv, sigma2, valid, robust):
-    x_cam = X @ R.T + t
+    x_cam = mm(X, R.T) + t
     z = x_cam[:, 2]
     zs = jnp.where(jnp.abs(z) < 1e-9, 1e-9, z)
     u = K4[0] * x_cam[:, 0] / zs + K4[2]
@@ -250,12 +243,12 @@ def _motion_only_single(K4, rt6, X, uv, sigma2, valid, cfg: MotionOnlyConfig):
         def inner(state, _):
             R_i, t_i, lam, nu, cost, done = state
             r, Jc, _m = _motion_residuals(K4, R_i, t_i, X, uv, sigma2, valid_cur, cfg.robust)
-            H = jnp.einsum("mri,mrj->ij", Jc, Jc)
-            g = jnp.einsum("mri,mr->i", Jc, r)
+            H = einsum("mri,mrj->ij", Jc, Jc)
+            g = einsum("mri,mr->i", Jc, r)
             dH = jnp.clip(jnp.diag(H), 1e-6, None)
             Hd = H + lam * jnp.diag(dH)
             dx = -jnp.linalg.solve(Hd + 1e-9 * jnp.eye(6), g)
-            R_new = aa_to_rotmat(dx[:3]) @ R_i
+            R_new = mm(aa_to_rotmat(dx[:3]), R_i)
             t_new = t_i + dx[3:]
             c_new = _motion_cost(K4, R_new, t_new, X, uv, sigma2, valid_cur, cfg.robust)
             accept = (c_new < cost) & jnp.isfinite(c_new)
@@ -274,7 +267,7 @@ def _motion_only_single(K4, rt6, X, uv, sigma2, valid, cfg: MotionOnlyConfig):
         (R, t, _, _, _, _), _ = jax.lax.scan(inner, init, None, length=cfg.inner_iters)
 
         # chi2 prune between outer rounds (reference Optimizer.cpp:417-457)
-        x_cam = X @ R.T + t
+        x_cam = mm(X, R.T) + t
         z = x_cam[:, 2]
         zs = jnp.where(jnp.abs(z) < 1e-9, 1e-9, z)
         u = K4[0] * x_cam[:, 0] / zs + K4[2]

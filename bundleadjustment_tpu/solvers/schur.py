@@ -1,4 +1,4 @@
-"""Schur-complement normal equations for bundle adjustment, TPU-style.
+"""Schur-complement normal equations for bundle adjustment.
 
 Replaces Ceres' LM + DENSE_SCHUR configuration (reference
 `ba_project/src/ba/Optimizer.cpp:80-90`).  The normal equations
@@ -22,7 +22,7 @@ Everything is built with `jax.ops.segment_sum` over the flat observation table
   block-Jacobi (per-camera 6x6) preconditioner.  Scales to large K and is the
   unit that distributes across a device mesh (see
   `bundleadjustment_tpu/parallel/sharded_ba.py`): per-shard partial U/V/W
-  products are `psum`-reduced over ICI.
+  products are `psum`-reduced across devices.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from bundleadjustment_tpu.utils.precision import einsum
 
 
 class BABlocks(NamedTuple):
@@ -45,7 +47,7 @@ class BABlocks(NamedTuple):
 
 
 def _sym3_inv(V):
-    """Batched closed-form 3x3 symmetric inverse via adjugate (no LU on TPU)."""
+    """Batched closed-form 3x3 symmetric inverse via adjugate (no LU)."""
     a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]
     d, e = V[..., 1, 1], V[..., 1, 2]
     f = V[..., 2, 2]
@@ -77,11 +79,11 @@ def build_blocks(r, Jc, Jp, cam_idx, pt_idx, n_cams, n_pts, lam, cam_fixed, pt_f
     increments come out exactly zero).
     """
     # per-observation blocks
-    Uc = jnp.einsum("nri,nrj->nij", Jc, Jc)  # [N,6,6]
-    Vp = jnp.einsum("nri,nrj->nij", Jp, Jp)  # [N,3,3]
-    W = jnp.einsum("nri,nrj->nij", Jc, Jp)  # [N,6,3]
-    gc = jnp.einsum("nri,nr->ni", Jc, r)  # [N,6]
-    gp = jnp.einsum("nri,nr->ni", Jp, r)  # [N,3]
+    Uc = einsum("nri,nrj->nij", Jc, Jc)  # [N,6,6]
+    Vp = einsum("nri,nrj->nij", Jp, Jp)  # [N,3,3]
+    W = einsum("nri,nrj->nij", Jc, Jp)  # [N,6,3]
+    gc = einsum("nri,nr->ni", Jc, r)  # [N,6]
+    gp = einsum("nri,nr->ni", Jp, r)  # [N,3]
 
     U = jax.ops.segment_sum(Uc, cam_idx, num_segments=n_cams)
     V = jax.ops.segment_sum(Vp, pt_idx, num_segments=n_pts)
@@ -110,29 +112,29 @@ def schur_matvec(blocks, x):
     All gathers/scatters ride segment ops — the same code path shards over a
     mesh axis by psum-ing the two segment_sums (see parallel/sharded_ba.py).
     """
-    Ux = jnp.einsum("kij,kj->ki", blocks.U, x)
+    Ux = einsum("kij,kj->ki", blocks.U, x)
     # y_l = sum_{o in obs(l)} W_o^T x_{cam(o)}
-    Wx = jnp.einsum("nij,ni->nj", blocks.W, x[blocks.cam_idx])  # [N,3]
+    Wx = einsum("nij,ni->nj", blocks.W, x[blocks.cam_idx])  # [N,3]
     y = jax.ops.segment_sum(Wx, blocks.pt_idx, num_segments=blocks.V_inv.shape[0])
-    z = jnp.einsum("lij,lj->li", blocks.V_inv, y)  # [L,3]
-    Wz = jnp.einsum("nij,nj->ni", blocks.W, z[blocks.pt_idx])  # [N,6]
+    z = einsum("lij,lj->li", blocks.V_inv, y)  # [L,3]
+    Wz = einsum("nij,nj->ni", blocks.W, z[blocks.pt_idx])  # [N,6]
     back = jax.ops.segment_sum(Wz, blocks.cam_idx, num_segments=x.shape[0])
     return Ux - back
 
 
 def schur_rhs(blocks):
     """b = -(g_c - W V^{-1} g_p)."""
-    z = jnp.einsum("lij,lj->li", blocks.V_inv, blocks.g_p)
-    Wz = jnp.einsum("nij,nj->ni", blocks.W, z[blocks.pt_idx])
+    z = einsum("lij,lj->li", blocks.V_inv, blocks.g_p)
+    Wz = einsum("nij,nj->ni", blocks.W, z[blocks.pt_idx])
     red = jax.ops.segment_sum(Wz, blocks.cam_idx, num_segments=blocks.g_c.shape[0])
     return -(blocks.g_c - red)
 
 
 def back_substitute(blocks, dc):
     """dp = -V^{-1} (g_p + W^T dc)."""
-    Wx = jnp.einsum("nij,ni->nj", blocks.W, dc[blocks.cam_idx])
+    Wx = einsum("nij,ni->nj", blocks.W, dc[blocks.cam_idx])
     y = jax.ops.segment_sum(Wx, blocks.pt_idx, num_segments=blocks.V_inv.shape[0])
-    return -jnp.einsum("lij,lj->li", blocks.V_inv, blocks.g_p + y)
+    return -einsum("lij,lj->li", blocks.V_inv, blocks.g_p + y)
 
 
 def solve_schur_dense(blocks):
@@ -153,7 +155,7 @@ def _pcg(blocks, b, Minv, max_iters, tol):
     """Block-Jacobi preconditioned CG on the Schur complement."""
 
     def precond(v):
-        return jnp.einsum("kij,kj->ki", Minv, v)
+        return einsum("kij,kj->ki", Minv, v)
 
     def dot(a, c):
         return jnp.sum(a * c)

@@ -1,80 +1,46 @@
 """Persistent XLA compile cache.
 
 The tracking/mapping pipeline jits a family of shape buckets (frontend,
-motion-only BA, neighbor-search batches, BA snapshots).  On a remote-compile
-TPU each new bucket costs ~20-40 s; the persistent cache makes every rerun
-(and every driver round) skip straight to execution.
+motion-only BA, neighbor-search batches, BA snapshots); the persistent
+cache lets a rerun skip their compiles.  The cache directory is part of the
+cache key, so it stays at one fixed place: `JAX_COMPILATION_CACHE_DIR` when
+the environment sets it (JAX then reads it itself), else `.jax_cache` at the
+root of the checkout.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
+
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+
+REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def _host_tag() -> str:
-    """Fingerprint of the host CPU's ISA feature set.
-
-    XLA's persistent cache keys do NOT include host CPU features, so a
-    cache directory shared across heterogeneous hosts (e.g. a repo-local
-    `.jax_cache` surviving bench rounds on different relay machines) can
-    deserialize an executable compiled for another CPU's vector extensions
-    — XLA warns this "could lead to execution errors such as SIGILL"
-    (observed in BENCH_r03's tail).  Keying the directory by a hash of the
-    cpuinfo flags makes each host class use its own namespace.
-    """
-    flags = ""
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    flags = line
-                    break
-    except OSError:
-        pass
-    raw = f"{platform.machine()}|{flags}"
-    return hashlib.sha1(raw.encode()).hexdigest()[:12]
+def cache_dir() -> str:
+    """The directory the compile cache lives in."""
+    return os.environ.get(ENV_VAR) or REPO_CACHE_DIR
 
 
-def _default_dir() -> str:
-    """Repo-local `.jax_cache/<host-tag>` when the source tree is writable
-    (dev checkout), else a per-user cache dir (installed package /
-    read-only site-packages)."""
-    repo = os.path.dirname(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    )
-    if os.access(repo, os.W_OK):
-        return os.path.join(repo, ".jax_cache", _host_tag())
-    base = os.environ.get(
-        "XDG_CACHE_HOME", os.path.join(os.path.expanduser("~"), ".cache")
-    )
-    return os.path.join(base, "bundleadjustment_tpu", "jax_cache", _host_tag())
+def enable_persistent_cache() -> str | None:
+    """Point JAX's compilation cache at `cache_dir()`; returns the directory,
+    or None where the cache stays off.
 
-
-def enable_persistent_cache(cache_dir: str | None = None) -> bool:
-    """Point JAX's compilation cache at a writable directory.  Safe to call
-    multiple times; returns False when the directory cannot be created or
-    the JAX build lacks the compilation-cache config options.  (Backends
-    that ignore the cache — e.g. remote-compile paths — simply compile as
-    usual; that failure mode surfaces at compile time, not here.)
-
-    On the CPU backend the cache is NOT enabled: XLA:CPU AOT reload
-    compares compile-time target features (which include pseudo-flags like
-    +prefer-no-scatter) against raw host cpuinfo and warns "could lead to
-    execution errors such as SIGILL" on every hit — even same-host — and
-    concurrent cache writes have produced flaky compiler segfaults, while
-    CPU compiles are seconds anyway.  (Round-3 VERDICT #5's dirty bench
-    tail was exactly this loader warning.)"""
+    Reads configuration only — it never initializes a backend.  With
+    `JAX_COMPILATION_CACHE_DIR` set nothing is changed.  A process pinned to
+    the CPU platform (the test suite) keeps the cache off: XLA:CPU reloads
+    warn of possible SIGILL on every hit, concurrent cache writes have
+    crashed its compiler, and CPU compiles take seconds anyway."""
     import jax
 
-    if jax.default_backend() == "cpu":
-        return False
-    path = cache_dir or _default_dir()
-    try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        return True
-    except Exception:
-        return False
+    if os.environ.get(ENV_VAR):
+        return os.environ[ENV_VAR]
+    if (jax.config.jax_platforms or "").strip().lower() == "cpu":
+        return None
+    os.makedirs(REPO_CACHE_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return REPO_CACHE_DIR

@@ -1,7 +1,8 @@
-"""FLOP / byte accounting for the BA solvers — MFU and roofline reporting.
+"""FLOP / byte accounting for the BA solvers and the frontend — roofline
+shares against the card's published peaks.
 
-BASELINE.md demands speed-of-light evidence, which requires knowing what
-fraction of peak the solve achieves, not just iterations/s.  The counts
+A roofline share says what fraction of the card's peak a solve achieves,
+not just its iterations/s.  The counts
 below follow the dense component-major engine (`solvers/dense_ba.py`)
 term by term; the reference has no analogue (Ceres reports only wall time,
 `ba_project/src/ba/Optimizer.cpp:116-125`).
@@ -13,56 +14,35 @@ observation slots per landmark.
 from __future__ import annotations
 
 
-# Peak dense-matmul throughput per chip, FLOP/s.  MXU peaks are for the
-# native mixed-precision mode (bf16 inputs, f32 accumulate) — fp32 matmuls
-# on TPU run at a fraction of this, so MFU computed against the bf16 peak is
-# a conservative lower bound.
-PEAK_FLOPS = {
-    "TPU v3": 123e12,
-    "TPU v4": 275e12,
-    "TPU v5 lite": 197e12,
-    "TPU v5e": 197e12,
-    "TPU v5": 459e12,  # v5p
-    "TPU v6 lite": 918e12,
-    "TPU v6e": 918e12,
+# Published peaks of one card, keyed by `jax.Device.device_kind`: NVIDIA
+# H100 data sheet, dense rates without sparsity, at the full power limit
+# (700 W SXM, 350 W PCIe).  "fp32" is the non-tensor-core float32 rate —
+# what a float32 product at HIGHEST precision runs at; "tf32" and "bf16"
+# are tensor-core rates; "hbm" is device-memory bandwidth in bytes/s.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {  # SXM5
+        "bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "hbm": 3.35e12,
+    },
+    "NVIDIA H100 PCIe": {
+        "bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "hbm": 2.0e12,
+    },
 }
 
 
-# Peak HBM bandwidth per chip, bytes/s — the binding roofline for the
-# (bandwidth-bound) feature frontend.
-PEAK_HBM_BW = {
-    "TPU v3": 900e9,
-    "TPU v4": 1228e9,
-    "TPU v5 lite": 819e9,
-    "TPU v5e": 819e9,
-    "TPU v5": 2765e9,  # v5p
-    "TPU v6 lite": 1640e9,
-    "TPU v6e": 1640e9,
-}
+def device_peaks(device) -> dict:
+    """The PEAKS row of a jax device; a device not in the table raises."""
+    kind = getattr(device, "device_kind", str(device))
+    try:
+        return PEAKS[kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {kind!r}; add it to "
+            "utils/flops.PEAKS with its source") from None
 
 
-def device_peak_flops(device) -> float | None:
-    """Peak FLOP/s for a jax device, or None if unknown (e.g. CPU)."""
-    kind = getattr(device, "device_kind", "")
-    for name, peak in PEAK_FLOPS.items():
-        if kind.lower().startswith(name.lower()):
-            return peak
-    return None
-
-
-def device_peak_bw(device) -> float | None:
-    """Peak HBM bandwidth (B/s) for a jax device, or None if unknown."""
-    kind = getattr(device, "device_kind", "")
-    for name, bw in PEAK_HBM_BW.items():
-        if kind.lower().startswith(name.lower()):
-            return bw
-    return None
-
-
-# FLOP-model version, reported alongside MFU numbers in bench JSON.  v2
-# (round 2): resid_jac 420->440 and the separate 2x cost-eval term removed
-# when the engine switched to single-eval LM (trial residuals reused) —
-# MFU/roofline figures are NOT comparable with v1 (BENCH_r01) numbers.
+# FLOP-model version, reported alongside roofline numbers.  v2: resid_jac
+# 420->440 and no separate cost-eval term (the LM scan reuses the trial
+# point's residuals).
 FLOP_MODEL_VERSION = 2
 
 
@@ -163,7 +143,7 @@ def frontend_flops(H, W, n_features=1000, n_levels=8, scale_factor=1.2,
     Terms follow the shift-add/matmul lowering:
 
     - resize: two dense matmuls per level>0, [h_l,H]@[H,W] + [h_l,W]@[W,w_l]
-      (the MXU work; everything else is VPU elementwise);
+      (the only matrix products; everything else is elementwise);
     - sobel: 2 gradients x 2 separable passes (2+3 nonzero taps, 2 FLOP/tap);
     - structure tensor: 3 products + 3-channel separable 7-tap blur;
     - harris/shi response arithmetic;
@@ -185,7 +165,7 @@ def frontend_flops(H, W, n_features=1000, n_levels=8, scale_factor=1.2,
     """
     dims = _frontend_level_dims(H, W, n_levels, scale_factor)
     allocs = _frontend_level_allocs(n_features, n_levels, scale_factor)
-    br = {"resize_mxu": 0, "sobel": 0, "structure_blur": 0, "response": 0,
+    br = {"resize_mm": 0, "sobel": 0, "structure_blur": 0, "response": 0,
           "nms_topk": 0, "blur": 0, "orientation": 0, "brief": 0,
           "subpixel": 0}
     int_ops = 0
@@ -193,7 +173,7 @@ def frontend_flops(H, W, n_features=1000, n_levels=8, scale_factor=1.2,
     for lvl, ((h, w), m) in enumerate(zip(dims, allocs)):
         p = h * w
         if lvl > 0:
-            br["resize_mxu"] += 2 * h * H * W + 2 * h * W * w
+            br["resize_mm"] += 2 * h * H * W + 2 * h * W * w
             bytes_ += 4 * (H * W + h * W + h * w)
         br["sobel"] += (4 + 6) * 2 * p  # kd(2 taps)+ks(3 taps), ix and iy
         br["structure_blur"] += 3 * p + 3 * 2 * 7 * 2 * p
@@ -214,22 +194,21 @@ def frontend_flops(H, W, n_features=1000, n_levels=8, scale_factor=1.2,
 
 def frontend_roofline(ms_per_frame: float, H, W, device, n_features=1000,
                       n_levels=8, scale_factor=1.2) -> dict:
-    """Achieved TFLOP/s, MFU (vs bf16 MXU peak — tiny by construction for a
-    VPU/bandwidth-bound frontend; reported for comparability), and HBM
-    bandwidth utilization for a measured per-frame time."""
+    """Achieved GFLOP/s and device-memory bandwidth for a measured per-frame
+    time, as shares of the card's float32 and HBM peaks (the frontend runs
+    at full float32 precision and is bandwidth-bound)."""
     fl = frontend_flops(H, W, n_features, n_levels, scale_factor)
     t = ms_per_frame / 1e3
+    peaks = device_peaks(device)
     achieved = fl["total"] / t
-    peak = device_peak_flops(device)
-    bw = device_peak_bw(device)
     return {
         "flops_per_frame": fl["total"],
         "int_ops_per_frame": fl["int_ops"],
         "bytes_per_frame": fl["bytes"],
         "achieved_gflops": achieved / 1e9,
-        "mfu": (achieved / peak) if peak else None,
+        "fp32_share": achieved / peaks["fp32"],
         "achieved_gbps": fl["bytes"] / t / 1e9,
-        "bw_util": (fl["bytes"] / t / bw) if bw else None,
+        "bw_share": fl["bytes"] / t / peaks["hbm"],
         "dominant_term": max(
             ((k, v) for k, v in fl.items()
              if k not in ("total", "int_ops", "bytes")),
@@ -239,20 +218,24 @@ def frontend_roofline(ms_per_frame: float, H, W, device, n_features=1000,
 
 
 def roofline(iter_s: float, K: int, L: int, O: int, device,
-             solver: str = "dense", pcg_iters: int = 0) -> dict:
-    """Achieved TFLOP/s, MFU vs the chip's bf16 peak, and arithmetic
-    intensity for a measured LM-iterations/s figure."""
+             solver: str = "dense", pcg_iters: int = 0,
+             precision: str = "fp32") -> dict:
+    """Achieved TFLOP/s for a measured LM-iterations/s figure, its share of
+    the card's peak at `precision` ("fp32" for the engine's HIGHEST float32
+    products, "tf32"/"bf16" for tensor-core runs), the bytes share, and the
+    arithmetic intensity."""
     fl = dense_ba_iter_flops(K, L, O, solver, pcg_iters)
     by = dense_ba_iter_bytes(K, L, O)
+    peaks = device_peaks(device)
     achieved = fl["total"] * iter_s
-    peak = device_peak_flops(device)
     return {
         "flops_per_iter": fl["total"],
         "bytes_per_iter": by["total"],
         "arith_intensity": fl["total"] / max(by["total"], 1),
         "achieved_tflops": achieved / 1e12,
-        "mfu": (achieved / peak) if peak else None,
-        "peak_tflops": (peak / 1e12) if peak else None,
+        "peak_tflops": peaks[precision] / 1e12,
+        "flops_share": achieved / peaks[precision],
+        "bytes_share": by["total"] * iter_s / peaks["hbm"],
         "dominant_term": max(
             ((k, v) for k, v in fl.items() if k != "total"),
             key=lambda kv: kv[1],

@@ -3,7 +3,7 @@
 The reference's only instrumentation is commented-out clock_t prints around
 Ceres solves (`ba_project/src/ba/Optimizer.cpp:116-125`, SURVEY.md §5).
 Here: a per-phase wall-clock accumulator threaded through the pipeline, and
-a context wrapper around the JAX device profiler for TPU traces.
+a context wrapper around the JAX device profiler.
 """
 
 from __future__ import annotations
@@ -50,8 +50,7 @@ class PhaseTimer:
 
 @contextlib.contextmanager
 def device_trace(log_dir):
-    """JAX profiler trace (TensorBoard format) around a code region; the
-    TPU-native answer to the reference's clock_t prints."""
+    """JAX profiler trace (TensorBoard format) around a code region."""
     import jax
 
     jax.profiler.start_trace(log_dir)

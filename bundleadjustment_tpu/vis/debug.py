@@ -74,6 +74,6 @@ def draw_matches(image_a, xy_a, image_b, xy_b, matches, max_draw=200,
 
 
 def save_png(path, rgb):
-    from PIL import Image
+    from bundleadjustment_tpu.data.png import write_png
 
-    Image.fromarray(np.asarray(rgb, np.uint8)).save(path)
+    write_png(path, np.asarray(rgb, np.uint8))

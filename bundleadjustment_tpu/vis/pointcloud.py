@@ -1,6 +1,6 @@
 """Depth-map back-projection + finite-difference normals, on device.
 
-TPU-native replacement for the OpenMP back-projection loops in the reference
+Array-form replacement for the OpenMP back-projection loops in the reference
 (`ba_project/src/model/PointCloud.h:46-135`): the whole depth map deprojects
 in one fused elementwise computation; normals come from central differences
 of neighboring camera-space points (`PointCloud.h:87-135` semantics: invalid

@@ -1,11 +1,11 @@
-"""TPU-native Poisson surface reconstruction.
+"""Poisson surface reconstruction on device.
 
 Replaces PCL's Poisson meshing (reference
 `ba_project/src/visualization/SimpleMesh.cpp:414-491`) with a
 spectral-solver pipeline that keeps the heavy math on device:
 
 1. normals: chunked k-NN PCA over the point cloud (`estimate_normals`) —
-   all-pairs distances ride the MXU, smallest-eigenvector via batched
+   all-pairs distances as one matrix product, smallest-eigenvector via batched
    `eigh`; oriented toward the camera viewpoints (PCL uses the sensor
    origin the same way);
 2. splat the oriented normal field onto a ``D^3`` voxel grid with trilinear
@@ -42,6 +42,8 @@ def estimate_normals(points, k=16, viewpoints=None, chunk=2048):
     import jax
     import jax.numpy as jnp
 
+    from bundleadjustment_tpu.utils.precision import einsum, mm
+
     pts = jnp.asarray(np.asarray(points, np.float32))
     N = pts.shape[0]
     k = min(k, N - 1)
@@ -52,13 +54,13 @@ def estimate_normals(points, k=16, viewpoints=None, chunk=2048):
         # block [C, 3] vs all points
         d2 = (
             jnp.sum(block**2, 1)[:, None]
-            - 2.0 * block @ pts.T
+            - 2.0 * mm(block, pts.T)
             + jnp.sum(pts**2, 1)[None, :]
         )
         _, idx = jax.lax.top_k(-d2, k + 1)  # includes self
         nb = pts[idx]  # [C, k+1, 3]
         c = nb - nb.mean(axis=1, keepdims=True)
-        cov = jnp.einsum("cki,ckj->cij", c, c)
+        cov = einsum("cki,ckj->cij", c, c)
         _w, v = jnp.linalg.eigh(cov)
         return v[..., 0]  # smallest-eigenvalue eigenvector
 

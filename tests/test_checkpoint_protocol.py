@@ -78,3 +78,30 @@ def test_checkpoint_resume_fresh_process_protocol(tmp_path):
     # equivalence up to the documented degraded-finalize effect
     assert abs(resumed["ate_rmse_m"] - ate_straight) < max(
         0.6 * ate_straight, 0.01), (resumed["ate_rmse_m"], ate_straight)
+
+
+def test_main_runs_child_protocols_first(monkeypatch, capsys):
+    """`protocols.main` runs the protocols whose work runs in child
+    processes before any in-process one, so the parent has not yet taken
+    the device when the children need it; a child protocol's own `device`
+    field is kept."""
+    import protocols
+
+    order = []
+
+    def fake(name, device=None):
+        def fn(seed=None):
+            order.append((name, seed))
+            return {"metric": name} | ({"device": device} if device else {})
+        return fn
+
+    monkeypatch.setattr(protocols, "PROTOCOLS", {
+        "1": fake("1"), "2": fake("2"), "6r": fake("6r", device="child-dev"),
+    })
+    protocols.main(["2", "1:111", "6r"])
+    assert order == [("6r", None), ("2", None), ("1", 111)]
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert lines[0] == {"metric": "6r", "device": "child-dev"}
+    assert all("device" in ln for ln in lines)
+    with pytest.raises(SystemExit):
+        protocols.main(["sweep", "1", "6r"])

@@ -143,7 +143,7 @@ def test_fast_corners_bitpack_matches_naive():
 
 
 def test_shift_add_conv_matches_lax_conv():
-    """The shift-add separable correlation (TPU-fast lowering) must be
+    """The shift-add separable correlation (the frontend's lowering) must be
     numerically identical to the `lax.conv_general_dilated` formulation it
     replaced (zero 'same' padding, no kernel flip)."""
     import jax

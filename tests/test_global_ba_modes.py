@@ -2,7 +2,7 @@
 
 The reference's global BA *is* its pipeline's solver
 (`ba_project/src/ba/Optimizer.cpp:93-160`, invoked from
-`BundleAdjustment.cpp:196-207,228-230`).  These tests lock the TPU build's
+`BundleAdjustment.cpp:196-207,228-230`).  These tests lock this build's
 equivalent: `cfg.global_ba_mode` routes the pipeline's global solves through
 the windowed (window-shard_map + pose-graph stitch) or landmark-sharded
 dense engines on the 8-virtual-device CPU mesh, with ATE parity against the

@@ -1,5 +1,6 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from bundleadjustment_tpu.ops.matching import (
     hamming_distance_matrix,
@@ -78,3 +79,30 @@ def test_max_dist_gate(rng):
     b = a + 5.0
     idx, _ = match_descriptors(jnp.asarray(a), jnp.asarray(b), metric="l2", max_dist=0.5)
     assert (np.asarray(idx) == -1).all()
+
+
+@pytest.mark.parametrize("m1, m2", [(255, 256), (256, 257), (1000, 1024)])
+def test_hamming_top2_matches_brute_force(m1, m2):
+    """The XLA matcher's top-2 against a numpy brute force at sizes around
+    power-of-two tile boundaries, with valid-masked train rows."""
+    from bundleadjustment_tpu.ops.matching import (
+        _top2_rows,
+        hamming_distance_matrix,
+    )
+
+    rng = np.random.default_rng(m1 + m2)
+    a = rng.integers(0, 2**32, (m1, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (m2, 8), dtype=np.uint32)
+    b[: m1 // 2] = a[: m1 // 2] ^ rng.integers(0, 16, (m1 // 2, 8),
+                                               dtype=np.uint32)
+    vb = rng.random(m2) > 0.1
+    d = np.unpackbits((a[:, None, :] ^ b[None, :, :]).view(np.uint8),
+                      axis=-1).sum(-1).astype(np.float32)
+    d[:, ~vb] = np.inf
+    best, idx, second = (np.asarray(x) for x in _top2_rows(
+        hamming_distance_matrix(jnp.asarray(a), jnp.asarray(b),
+                                valid_b=jnp.asarray(vb))))
+    ref = np.sort(d, axis=1)
+    np.testing.assert_array_equal(best, ref[:, 0])
+    np.testing.assert_array_equal(second, ref[:, 1])
+    np.testing.assert_array_equal(idx, np.argmin(d, axis=1))

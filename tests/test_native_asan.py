@@ -1,7 +1,7 @@
 """ASan/UBSan smoke test of the native map store.
 
 The reference compiles AddressSanitizer into every Debug build
-(ba_project/CMakeLists.txt:32-40); the TPU framework's equivalent risk
+(ba_project/CMakeLists.txt:32-40); this framework's equivalent risk
 surface is libmapstore's C ABI (raw pointers + caller-sized buffers via
 ctypes), so CI builds an instrumented `libmapstore_asan.so` and drives the
 full API from a subprocess with the sanitizer runtime preloaded.

@@ -6,7 +6,7 @@ from tests.test_pipeline import run_and_ate
 
 @pytest.mark.slow
 def test_pipeline_with_dense_landmark_layout():
-    """The TPU-optimized BA layout plugs into the tracking pipeline."""
+    """The dense landmark-major BA layout plugs into the tracking pipeline."""
     cfg = PipelineConfig(
         init_type="gtdepth",
         estimation="ba",

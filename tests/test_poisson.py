@@ -1,4 +1,4 @@
-"""Poisson surface reconstruction (vis/poisson.py) — the TPU-native
+"""Poisson surface reconstruction (vis/poisson.py) — the on-device
 replacement for PCL Poisson meshing (reference SimpleMesh.cpp:414-491)."""
 
 import numpy as np

@@ -1,7 +1,6 @@
 """The compile warm-up must enumerate tasks whose (signature, static-arg)
 keys match what the driver actually calls — a task that throws would
-silently waste a remote compile slot (CompileWarmer counts it in
-`failed`).  Run every task synchronously on CPU at a small geometry and
+silently waste a compile slot (CompileWarmer counts it in `failed`).  Run every task synchronously on CPU at a small geometry and
 assert zero failures."""
 
 import numpy as np
@@ -53,5 +52,5 @@ def test_warmup_skips_on_cpu_backend():
     cfg = PipelineConfig(n_features=64, n_levels=2)
     K4 = np.array([150.0, 150.0, 80.0, 60.0], np.float32)
     pipe = BundleAdjustmentPipeline(cfg, K4, 160, 120)
-    w = CompileWarmer(pipe).start()  # require_tpu=True, backend is cpu
+    w = CompileWarmer(pipe).start()  # backend is cpu: no threads
     assert w._threads == []
